@@ -1,0 +1,105 @@
+"""Where the time of one llama-400m training step goes on the GPU (PyTorch port).
+
+    python3 scripts/profile_torch_step.py [--model llama-400m] [--batch 8]
+        [--seq 2048] [--steps 2]
+
+Builds the port's train step through the llama_train entry point's setup,
+runs one warm-up step, then traces ``--steps`` steps with torch.profiler
+(CPU and CUDA activities). Prints the step wall time (host clock around
+steps that end in a device synchronise), the device time of every kernel
+summed by group (the port's four hand-written kernels, matrix products,
+the optimizer's multi-tensor kernels, torch's elementwise and reduction
+kernels, everything else), the device's busy and idle share of the traced
+wall time, and the 25 kernels with the most device time. The last line is one JSON object of the same numbers. Needs
+one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+PORT_KERNELS = ("rope_kernel", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+
+
+def group_of(name: str) -> str:
+    for k in PORT_KERNELS:
+        if k in name:
+            return k
+    low = name.lower()
+    if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "matmul"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer"
+    if "elementwise" in low or "reduce" in low:
+        return "elementwise+reduce"
+    return "other"
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model", default="llama-400m")
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--seq", type=int, default=2048)
+    parser.add_argument("--steps", type=int, default=2)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_step: CUDA is not available", file=sys.stderr)
+        return 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tf_operator_tpu_torch.train import llama_train
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)
+    targs = llama_train.parse_args(["--model", args.model, "--batch", str(args.batch),
+                                    "--seq", str(args.seq), "--steps", str(args.steps)])
+    _, state, step_fn, data = llama_train.setup(targs)
+    state, loss = step_fn(state, next(data))  # warm-up: kernel build, allocator
+    float(loss)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, loss = step_fn(state, next(data))
+            float(loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    groups: dict = {}
+    for e in kernels:
+        g = groups.setdefault(group_of(e.key), {"ms": 0.0, "launches": 0})
+        g["ms"] += e.self_device_time_total / 1e3 / args.steps
+        g["launches"] += e.count // args.steps
+    busy = sum(g["ms"] for g in groups.values())
+    step_ms = wall_ms / args.steps
+    print(f"step {step_ms:.2f} ms (wall, profiler on); device busy {busy:.2f} ms "
+          f"({busy / step_ms:.4f} of the step), idle {1 - busy / step_ms:.4f}")
+    for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  {name:18s} {g['ms']:9.3f} ms/step {g['ms'] / busy:.4f} of busy, "
+              f"{g['launches']} launches/step")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    print(json.dumps({"card": smi, "model": args.model, "batch": args.batch,
+                      "seq": args.seq, "step_ms": step_ms, "device_busy_ms": busy,
+                      "groups": groups}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

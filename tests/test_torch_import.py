@@ -1,0 +1,119 @@
+"""The port stands alone: it imports with JAX and the JAX package blocked,
+imports none of them anywhere, builds nothing at import, and its entry
+points refuse to run on the CPU unasked."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "tf_operator_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu"}
+MODULES = [
+    "tf_operator_tpu_torch",
+    "tf_operator_tpu_torch.device",
+    "tf_operator_tpu_torch.ops.build",
+    "tf_operator_tpu_torch.ops.rope",
+    "tf_operator_tpu_torch.ops.flash",
+    "tf_operator_tpu_torch.ops.attention",
+    "tf_operator_tpu_torch.models.llama",
+    "tf_operator_tpu_torch.models.convert",
+    "tf_operator_tpu_torch.train.data",
+    "tf_operator_tpu_torch.train.train_step",
+    "tf_operator_tpu_torch.train.llama_train",
+    "chip_smoke",
+]
+
+
+def run_python(code, cwd=ROOT, timeout=120):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_imports_with_jax_and_the_jax_package_blocked():
+    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in sorted(FORBIDDEN))
+    code = (
+        f"import sys; {blocked}\n"
+        f"import importlib\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "from tf_operator_tpu_torch.ops import build\n"
+        "assert build._lib is None, 'a kernel library was loaded at import'\n"
+        "print('imported')\n"
+    )
+    proc = run_python(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_import_anywhere_in_the_port():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        bad = FORBIDDEN.intersection(_imported_roots(path))
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_entry_point_refuses_the_cpu_unasked():
+    proc = run_python(
+        "import sys; from tf_operator_tpu_torch.train import llama_train; "
+        "sys.exit(llama_train.main(['--steps', '1']))"
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_no_silent_fallback_off_the_cpu():
+    """Plain versions serve CPU tensors only: any other device gets the
+    kernel (CUDA) or an error, never the plain path."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import flash, rope
+
+    x = torch.empty(1, 4, 2, 8, device="meta")
+    table = torch.empty(4, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rope.rope(x, table, table)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash.flash_attention(x, x, x)
+    # The kernel wrappers themselves refuse anything but a CUDA tensor.
+    cpu = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_forward_cuda(cpu, cpu, cpu)
+    with pytest.raises(ValueError, match="CUDA"):
+        rope.rope_cuda(cpu, torch.zeros(64, 64), torch.zeros(64, 64))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    from tf_operator_tpu_torch.ops import build
+
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    proc = run_python("import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

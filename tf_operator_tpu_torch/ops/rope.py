@@ -1,0 +1,79 @@
+"""Rotary position embedding (RoPE): the Hopper kernel and its plain version.
+
+Counterpart of ``tf_operator_tpu/ops/rope_pallas.py``. ``rope(x, cos, sin)``
+rotates the pairs (x[..., :d/2], x[..., d/2:]) of x ``[b, s, h, d]`` by the
+angles of the ``[s, d/2]`` fp32 tables, in fp32, and casts back to x's dtype.
+RoPE is a rotation R(θ) per pair, so its gradient is the rotation by -θ:
+the backward is the same kernel with ``-sin`` (``_rope_bwd`` in the JAX
+package); the tables get no gradient.
+
+A CUDA tensor goes through ``ops/csrc/rope.cu``; a CPU tensor through
+:func:`rope_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+
+def rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch (x [b, s, h, d]; cos/sin [s, d/2])."""
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def rope_cuda(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Launch the rope kernel (bf16 x) on x's device and the current stream."""
+    b, s, h, d = x.shape
+    if not x.is_cuda:
+        raise ValueError(f"rope kernel takes a CUDA tensor, not one on {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rope kernel takes bfloat16, not {x.dtype}")
+    if d % 2:
+        raise ValueError(f"head_dim must be even, got {d}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {x.device}")
+        if tuple(t.shape) != (s, d // 2) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [{s}, {d // 2}] table")
+    if not x.is_contiguous():
+        raise ValueError("rope kernel takes a contiguous x")
+    lib = build.load()
+    out = torch.empty_like(x)
+    code = lib.tk_rope(
+        x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+        b, s, h, d, build.stream_ptr(x.device),
+    )
+    build.check(lib, code, "rope kernel")
+    build.count("rope")
+    return out
+
+
+def _rope_raw(x, cos, sin):
+    if x.is_cuda:
+        return rope_cuda(x, cos, sin)
+    if x.device.type == "cpu":
+        return rope_plain(x, cos, sin)
+    raise ValueError(f"rope: unsupported device {x.device}")
+
+
+class _Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope_raw(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        # R(-θ): the rotation's transpose.
+        return _rope_raw(g.contiguous(), cos, -sin), None, None
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Differentiable RoPE. x: [b, s, h, d]; cos/sin: [s, d/2] fp32."""
+    return _Rope.apply(x, cos, sin)
