@@ -10,18 +10,20 @@ Phases (any failure raises and the script exits non-zero):
   (c) kernels against their plain versions, on the card in bf16: rope
       (forward and the -sin backward), the flash forward (o, lse), dQ and
       dK/dV (with and without a dlse cotangent), at the llama-400m shapes
-      [8, 2048, 8, 128] causal and in GQA 8:2, non-causal, cross-length
-      and seq-96 cases; each kernel's median time over CUDA
-      events, its plain version's, its bound and, for the forward, the
-      time of torch's scaled_dot_product_attention as a yardstick (timed
-      here only; the port never calls it);
+      [8, 2048, 8, 128] causal and in GQA 8:2, non-causal, cross-length,
+      seq-96, seq-200 and GQA 8:1 seq-320 cases (the last three end inside
+      a 128-row tile); each kernel's median time over CUDA events, its
+      plain version's, its bound (ops/flash.py flash_work) and share of it
+      and, for the forward, the time of torch's
+      scaled_dot_product_attention as a yardstick (timed here only; the
+      port never calls it);
   (d) full-width parity: a 2-layer model at llama-400m width from one set
       of seeded weights, bs 1, seq 2048: loss and per-parameter gradient
       norms on the card (kernels, bf16) against the CPU (plain, fp32);
   (e) training: llama-400m at full width and depth through the
       llama_train entry point, 1 warm-up step and 3 timed steps at bs 8,
       seq 2048, with the kernels' launch counters reset just before and
-      read just after.
+      read just after (reported per run and per step).
 
 The last lines are the nvidia-smi line, one JSON line of per-kernel
 results, and {"ok": true, "device": {...}}.
@@ -46,6 +48,8 @@ CASES = {
     "non_causal": dict(b=2, s=512, h=8, kvh=8, d=128, causal=False),
     "cross_len": dict(b=2, s=256, s_k=640, h=8, kvh=8, d=128, causal=False),
     "seq_96": dict(b=2, s=96, h=8, kvh=8, d=128, causal=True),
+    "seq_200": dict(b=2, s=200, h=8, kvh=8, d=128, causal=True),
+    "gqa_8_1_320": dict(b=2, s=320, h=8, kvh=1, d=128, causal=True),
 }
 # max |kernel - plain| / max |plain| allowed, in bf16 (unit roundoff 3.9e-3):
 # rope does the same fp32 math (1 bf16 rounding apart at most); the flash
@@ -61,7 +65,7 @@ SOURCES = {
                   "tf_operator_tpu/ops/flash_pallas.py:185"),
     "flash_dq": ("tf_operator_tpu_torch/ops/csrc/flash_bwd.cu",
                  "tf_operator_tpu/ops/flash_pallas.py:393"),
-    "flash_dkv": ("tf_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_dkv": ("tf_operator_tpu_torch/ops/csrc/flash_dkv.cu",
                   "tf_operator_tpu/ops/flash_pallas.py:426"),
 }
 
@@ -156,9 +160,7 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
             continue
 
         delta = flash.flash_delta(do, o)
-        pairs = b * h * (s * (s + 1) // 2 if causal else s * s_k)  # visible (q, k) pairs
-        qkv_bytes = 2 * (q.numel() + k.numel() + v.numel())
-        rows_bytes = 4 * lse.numel()
+        fw = flash.flash_work(b, s, s_k, h, kvh, d, causal)
         work = {
             # name: (kernel, plain, library, bytes moved, tensor-core flops)
             "rope": (lambda: rope_mod.rope_cuda(q, cos, sin),
@@ -169,15 +171,13 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
                           lambda: torch.nn.functional.scaled_dot_product_attention(
                               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               is_causal=causal),
-                          qkv_bytes + 2 * o.numel() + rows_bytes, 4 * pairs * d),
+                          *fw["flash_fwd"]),
             "flash_dq": (lambda: flash.flash_dq_cuda(q, k, v, do, lse, delta, causal),
                          lambda: flash.flash_dq_plain(q, k, v, do, lse, delta, causal), None,
-                         qkv_bytes + 2 * 2 * do.numel() + 2 * rows_bytes, 6 * pairs * d),
+                         *fw["flash_dq"]),
             "flash_dkv": (lambda: flash.flash_dkv_cuda(q, k, v, do, lse, delta, causal),
                           lambda: flash.flash_dkv_plain(q, k, v, do, lse, delta, causal),
-                          None,
-                          qkv_bytes + 2 * do.numel() + 2 * rows_bytes + 2 * 2 * k.numel(),
-                          8 * pairs * d),
+                          None, *fw["flash_dkv"]),
         }
         errs = {"rope": max(err["rope"], err["rope_bwd"]),
                 "flash_fwd": max(err["o"], err["lse"]),
@@ -196,9 +196,9 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
                 "library_ms": time_ms(lib) if lib is not None else None,
             }
-            log(f"[c] {name}: {res['ms']:.4f} ms (plain {res['plain_ms']:.4f} ms, bound "
-                f"{res['bound_ms']:.4f} ms by {res['bound_by']}, library "
-                f"{res['library_ms']}) bytes {nbytes} flops {flops}")
+            log(f"[c] {name}: {res['ms']:.4f} ms, {res['bound_ms'] / res['ms']:.3f} of its "
+                f"bound (plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
+                f"{res['bound_by']}, library {res['library_ms']}) bytes {nbytes} flops {flops}")
             results[name] = res
     return results
 
@@ -263,7 +263,7 @@ def phase_e(build, peak):
     log(f"[e] step seconds {secs} (first is warm-up)")
     log(f"[e] tokens/s {tps:.1f} MFU {mfu:.4f} (peak {peak.bf16_tflops} TFLOP/s); "
         f"peak device memory {peak_gib:.2f} GiB")
-    log(f"[e] launches in 4 steps {launches} (per step with per-block remat: "
+    log(f"[e] launches in {len(secs)} steps {launches} (per step with per-block remat: "
         "rope 144, flash_fwd 48, flash_dq 24, flash_dkv 24)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss {losses}")
@@ -272,7 +272,7 @@ def phase_e(build, peak):
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return launches
+    return launches, len(secs)
 
 
 def main() -> int:
@@ -297,14 +297,15 @@ def main() -> int:
     build.load()
     log(f"[b] build + load {time.perf_counter() - t0:.1f} s -> {build.library_path()}")
     for line in build.compiler_report().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
             log(f"[b] {line.strip()}")
 
     results = phase_c(flash, rope_mod, peak)
     phase_d()
-    launches = phase_e(build, peak)
+    launches, steps = phase_e(build, peak)
     for name, res in results.items():
         res["launches"] = launches[name]
+        res["launches_per_step"] = launches[name] / steps
 
     log(smi_line())
     log(json.dumps({"kernels": list(results.values())}))

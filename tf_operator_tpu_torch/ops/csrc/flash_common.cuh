@@ -1,9 +1,8 @@
-// Tiles, shared-memory layout and warp-level helpers shared by the flash
-// attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Tiles, shared-memory layout and warp-level helpers of the WMMA dQ kernel
+// (flash_bwd.cu); the forward and dK/dV kernels use hopper.cuh instead.
 //
-// A thread block holds one 64-row tile of the rows it owns (Q rows in the
-// forward and dQ kernels, K rows in the dK/dV kernel) and streams the other
-// side past in 64-row tiles. Each of its four warps owns 16 of the block's
+// A thread block holds one 64-row tile of the Q rows it owns and streams
+// the K/V side past in 64-row tiles. Each of its four warps owns 16 of the block's
 // rows, so the score, softmax and gradient algebra of a row never leaves its
 // warp: only the tile loads need the whole block to synchronise.
 //

@@ -4,163 +4,284 @@
 // _flash_forward).
 //
 // Computes causal or full attention with GQA and an online softmax: scores
-// are scale * Q K^T in fp32 from bf16 operands, masked with -1e30; the
-// running max m, denominator l and an fp32 accumulator carry across K/V
-// tiles; P is cast to bf16 before P V; o = acc / l (l == 0 -> 1) and
-// lse = m + log l.
+// s = Q K^T in fp32 from bf16 operands; the running max m, denominator l
+// and an fp32 accumulator carry across K/V tiles; P is cast to bf16 before
+// P V; o = acc / l (l == 0 -> 1) and lse = scale * m + log l.
 //
 // Bound on the H100: operations. At llama-400m (bs 8, seq 2048, 8 heads x
-// 128, causal) it does 68.7 GFLOP against 67 MB of traffic. Design: one
-// block per (q tile of 64 rows, q head, batch); it keeps its Q tile in
-// shared memory and loops over the K/V tiles up to the diagonal, so the
-// s x s score matrix never reaches device memory and tiles above the
-// diagonal are never read. K/V are read at KV head h / groups (GQA without
-// a repeat) straight through BSHD strides (no transposed copies). Products
-// run on the tensor cores (WMMA, bf16 in, fp32 out); the softmax runs on
-// the warp's own 16 rows in shared memory. Shared memory is 110 KB at
-// head_dim 128, so two blocks fit an SM.
+// 128, causal) it does 68.75 GFLOP against 135 MB of traffic.
+//
+// Design (sm_90a, the building blocks in hopper.cuh). One block per (128
+// Q rows, q head, batch): two warpgroups of 64 Q rows each.
+// - Thread 0 loads the block's Q tile once and streams the K and V tiles
+//   (128 keys each) by TMA into a 3-stage ring, one tile ahead of its use,
+//   each stage completing on an mbarrier; the warpgroups free a stage
+//   through a second mbarrier. So tile j + 1 loads while tile j computes.
+// - S = Q K^T is wgmma m64n128k16 with both operands K-major from the
+//   swizzled tiles. The softmax runs on the accumulator registers: each
+//   thread holds two rows, the row max and sum take two quad shuffles, and
+//   exp2 runs with scale * log2(e) folded into one multiply. The O
+//   accumulator (64 fp32 a thread) is rescaled in registers. O += P V is
+//   wgmma with P from registers (the S accumulator cast to bf16 pairs is
+//   the A fragment) and V MN-major from shared memory.
+// - Causal: K tiles past the block's last row are never loaded, only tiles
+//   that cross the diagonal (or the ragged end of the keys) are masked, and
+//   the blocks with the most tiles launch first.
+// - Epilogue: o = acc / l in registers, to bf16, staged in the warpgroup's
+//   own Q rows and written by TMA store (rows past the end are not
+//   written); lse from registers.
+// Shared memory 225 KB: one block an SM. GQA by index (K/V at head
+// h / groups), no copies of K/V. With 128 Q rows a block, every block
+// streams its K/V tiles from L2 (570 MB a call at llama-400m); that stream,
+// not the products or the softmax, sets most of the time (PERF.md).
 
-#include "flash_common.cuh"
+#include "hopper.cuh"
 
-namespace flash {
 namespace {
 
-template <int D>
-constexpr int fwd_smem_bytes() {
-  using L = Layout<D>;
-  return 3 * L::tile_bytes + L::score_bytes + L::prob_bytes + L::acc_bytes +
-         2 * L::row_bytes;
+using namespace hopper;
+
+constexpr int kD = 128;                       // head_dim
+constexpr int kRowsWG = 64;                   // Q rows of a consumer warpgroup
+constexpr int kConsumers = 2;                 // consumer warpgroups
+constexpr int kBlockM = kRowsWG * kConsumers; // Q rows of a block
+constexpr int kBlockN = 128;                  // keys of a K/V tile
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * kConsumers;
+
+constexpr int kQWGBytes = kRowsWG * kD * 2;   // 16 KB: two halves of [64][64]
+constexpr int kKVBytes = kBlockN * kD * 2;    // 32 KB: two halves of [128][64]
+constexpr int kKVHalf = kKVBytes / 2;
+constexpr int kOffQ = 0;
+constexpr int kOffK = kOffQ + kConsumers * kQWGBytes;
+constexpr int kOffV = kOffK + kStages * kKVBytes;
+constexpr int kOffBar = kOffV + kStages * kKVBytes;
+
+struct Barriers {
+  uint64_t q;                // the Q tile has landed
+  uint64_t k[kStages];       // K tile of the stage has landed
+  uint64_t v[kStages];       // V tile of the stage has landed
+  uint64_t empty[kStages];   // every consumer thread is done with the stage
+};
+
+constexpr int kSmemBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+
+// One tile's step of the online softmax on the S accumulator (two rows a
+// thread: row0 and row0 + 8): mask (only where `masked`), the new row max
+// over the quad, P = exp2(s * c - m * c) in place, l += this thread's share
+// of the row sum; returns the factors that rescale the old accumulator.
+__device__ __forceinline__ void softmax_step(float (&sc)[64], float& m0, float& m1, float& l0,
+                                             float& l1, float& alpha0, float& alpha1,
+                                             bool masked, int k0, int row0, int cq, int Sk,
+                                             int causal, float c) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int col = k0 + (i / 4) * 8 + cq + (i % 2);
+      const int row = row0 + ((i / 2) % 2) * 8;
+      if (col >= Sk || (causal && col > row)) sc[i] = -INFINITY;
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // A row with nothing visible yet keeps max -inf: subtract 0 instead of
+  // -inf so that exp2 gives 0, not nan.
+  const float ms0 = mx0 == -INFINITY ? 0.0f : mx0 * c;
+  const float ms1 = mx1 == -INFINITY ? 0.0f : mx1 * c;
+  alpha0 = exp2_approx(m0 * c - ms0);
+  alpha1 = exp2_approx(m1 * c - ms1);
+  m0 = mx0;
+  m1 = mx1;
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    sc[i] = exp2_approx(fmaf(sc[i], c, -ms0));
+    sc[i + 1] = exp2_approx(fmaf(sc[i + 1], c, -ms0));
+    sc[i + 2] = exp2_approx(fmaf(sc[i + 2], c, -ms1));
+    sc[i + 3] = exp2_approx(fmaf(sc[i + 3], c, -ms1));
+    sum0 += sc[i] + sc[i + 1];
+    sum1 += sc[i + 2] + sc[i + 3];
+  }
+  l0 = l0 * alpha0 + sum0;  // this thread's columns; the quad sums at the end
+  l1 = l1 * alpha1 + sum1;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-    int H, int KVH, int Sq, int Sk, int causal, float scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kTile * L::ld;
-  bf16* Vs = Ks + kTile * L::ld;
-  float* Ss = reinterpret_cast<float*>(Vs + kTile * L::ld);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + kTile * kLdS);
-  float* Os = reinterpret_cast<float*>(Ps + kTile * kLdP);
-  float* Ms = Os + kTile * L::ldo;
-  float* Ls = Ms + kTile;
+// acc *= alpha per row, and P (the softmaxed S accumulator) as bf16 A
+// fragments: keys 16kk..16kk+15 are accumulator columns 8(2kk) and
+// 8(2kk+1), i.e. sc[8kk .. 8kk+7].
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[64], const float (&sc)[64],
+                                                 uint32_t (&pa)[32], float alpha0,
+                                                 float alpha1) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    acc[i] *= alpha0;
+    acc[i + 1] *= alpha0;
+    acc[i + 2] *= alpha1;
+    acc[i + 3] *= alpha1;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
+    float* __restrict__ lse, int B, int H, int KVH, int Sq, int Sk, int causal, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  Barriers& bar = *reinterpret_cast<Barriers*>(smem + kOffBar);
+
+  const int n_q = (Sq + kBlockM - 1) / kBlockM;
+  const int bh = static_cast<int>(blockIdx.x) % (B * H);
+  const int qt = n_q - 1 - static_cast<int>(blockIdx.x) / (B * H);  // longest first
+  const int h = bh % H, b = bh / H;
   const int kvh = h / (H / KVH);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const long long q_row = static_cast<long long>(H) * D;
-  const long long kv_row = static_cast<long long>(KVH) * D;
+  const int q0 = qt * kBlockM;
+  const int n_k = (Sk + kBlockN - 1) / kBlockN;
+  // Causal: K tiles past the block's last row are invisible to every row.
+  const int k_end = causal ? min(n_k, (q0 + kBlockM + kBlockN - 1) / kBlockN) : n_k;
 
-  load_tile<D>(Qs, q + (static_cast<long long>(b) * Sq + q0) * q_row + h * D, q_row,
-               Sq - q0);
-  for (int i = threadIdx.x; i < kTile * L::ldo; i += kThreads) Os[i] = 0.0f;
-  if (threadIdx.x < kTile) {
-    Ms[threadIdx.x] = kMask;
-    Ls[threadIdx.x] = 0.0f;
-  }
-
-  const int n_k = (Sk + kTile - 1) / kTile;
-  // Causal: K tiles strictly above the diagonal are invisible to every row.
-  const int k_end = causal ? min(n_k, qt + 1) : n_k;
-  for (int kt = 0; kt < k_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const long long off = (static_cast<long long>(b) * Sk + k0) * kv_row + kvh * D;
-    load_tile<D>(Ks, k + off, kv_row, Sk - k0);
-    load_tile<D>(Vs, v + off, kv_row, Sk - k0);
-    __syncthreads();
-
-    warp_abt<D>(Qs + r0 * L::ld, Ks, Ss + r0 * kLdS);
-    __syncwarp();
-
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r;
-      const int qi = q0 + row;
-      float s[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t;
-        const int kj = k0 + c;
-        const float val = scale * Ss[row * kLdS + c];
-        s[t] = (kj >= Sk || (causal && qi < kj)) ? kMask : val;
-      }
-      const float m_prev = Ms[row];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
-      const float alpha = __expf(m_prev - m_new);
-      const float p0 = __expf(s[0] - m_new);
-      const float p1 = __expf(s[1] - m_new);
-      Ps[row * kLdP + lane] = __float2bfloat16(p0);
-      Ps[row * kLdP + lane + 32] = __float2bfloat16(p1);
-      const float psum = warp_sum(p0 + p1);
-      for (int c = lane; c < D; c += 32) Os[row * L::ldo + c] *= alpha;
-      __syncwarp();  // every lane has read Ms[row] before it changes
-      if (lane == 0) {
-        Ms[row] = m_new;
-        Ls[row] = alpha * Ls[row] + psum;
-      }
+  // Thread 0 loads: Q once, then each K/V tile one tile ahead of its use,
+  // into the stage whose previous tile both warpgroups have released.
+  const CUtensorMap* k_tma = &k_map;
+  const CUtensorMap* v_tma = &v_map;
+  auto load_kv = [&](int j) {
+    const int s = j % kStages;
+    if (j >= kStages) mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
+    mbar_arrive_expect_tx(&bar.k[s], kKVBytes);
+    for (int half = 0; half < 2; ++half)
+      tma_load_4d(smem + kOffK + s * kKVBytes + half * kKVHalf, k_tma, &bar.k[s], half * 64,
+                  kvh, j * kBlockN, b);
+    mbar_arrive_expect_tx(&bar.v[s], kKVBytes);
+    for (int half = 0; half < 2; ++half)
+      tma_load_4d(smem + kOffV + s * kKVBytes + half * kKVHalf, v_tma, &bar.v[s], half * 64,
+                  kvh, j * kBlockN, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar.k[s], 1);
+      mbar_init(&bar.v[s], 1);
+      mbar_init(&bar.empty[s], kThreads);
     }
-    __syncwarp();
+    fence_barrier_init();
+    mbar_arrive_expect_tx(&bar.q, kConsumers * kQWGBytes);
+    for (int w = 0; w < kConsumers; ++w)
+      for (int half = 0; half < 2; ++half)
+        tma_load_4d(smem + kOffQ + w * kQWGBytes + half * (kQWGBytes / 2), &q_map, &bar.q,
+                    half * 64, h, q0 + w * kRowsWG, b);
+    load_kv(0);
+  }
+  __syncthreads();
 
-    // O += P V on this warp's rows, the fp32 accumulator kept in shared
-    // memory (the per-row rescale above needs its row layout).
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rq = lane / 4, cq = 2 * (lane % 4);
+  const int row0 = q0 + wg * kRowsWG + warp * 16 + rq;  // rows row0 and row0 + 8
+  const float c = scale * kLog2e;
+  unsigned char* q_tile = smem + kOffQ + wg * kQWGBytes;
+  const uint32_t q_addr = smem_u32(q_tile);
+
+  float acc[64], sc[64];
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC acc;
-      float* dst = Os + r0 * L::ldo + n * 16;
-      wmma::load_matrix_sync(acc, dst, L::ldo, wmma::mem_row_major);
+  for (int i = 0; i < 64; ++i) acc[i] = sc[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  mbar_wait(&bar.q, 0);
+
+  for (int j = 0; j < k_end; ++j) {
+    if (threadIdx.x == 0 && j + 1 < k_end) load_kv(j + 1);
+    const int s = j % kStages;
+    const uint32_t phase = (j / kStages) & 1;
+    const uint32_t k_addr = smem_u32(smem + kOffK + s * kKVBytes);
+    const uint32_t v_addr = smem_u32(smem + kOffV + s * kKVBytes);
+    mbar_wait(&bar.k[s], phase);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA a;
-        FragB bv;
-        wmma::load_matrix_sync(a, Ps + r0 * kLdP + kk * 16, kLdP);
-        wmma::load_matrix_sync(bv, Vs + kk * 16 * L::ld + n * 16, L::ld);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(dst, acc, L::ldo, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n128k16_ss(sc, kmajor_desc(q_addr + (kk / 4) * (kQWGBytes / 2) + (kk % 4) * 32),
+                          kmajor_desc(k_addr + (kk / 4) * kKVHalf + (kk % 4) * 32), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    const int k0 = j * kBlockN;
+    float alpha0, alpha1;
+    const bool masked = (causal && k0 + kBlockN - 1 > q0) || k0 + kBlockN > Sk;
+    softmax_step(sc, m0, m1, l0, l1, alpha0, alpha1, masked, k0, row0, cq, Sk, causal, c);
+    uint32_t pa[32];
+    rescale_and_pack(acc, sc, pa, alpha0, alpha1);
+    mbar_wait(&bar.v[s], phase);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk)
+      wgmma_m64n128k16_rs_tb(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                             mnmajor_desc(v_addr + kk * 2048, kKVHalf), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    mbar_arrive(&bar.empty[s]);
   }
 
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r;
-    const int qi = q0 + row;
-    if (qi >= Sq) break;
-    const float l = Ls[row] == 0.0f ? 1.0f : Ls[row];
-    bf16* orow = o + (static_cast<long long>(b) * Sq + qi) * q_row + h * D;
-    for (int c = lane; c < D; c += 32)
-      orow[c] = __float2bfloat16(Os[row * L::ldo + c] / l);
-    if (lane == 0)
-      lse[(static_cast<long long>(b) * H + h) * Sq + qi] = Ms[row] + logf(l);
+  // Epilogue: o = acc / l as bf16 into this warpgroup's Q rows (read by
+  // no one else, and done with), in the swizzled layout the TMA store reads.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0);
+  const float inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int hi = (i / 2) % 2;
+    const int r = warp * 16 + rq + hi * 8;
+    const int col = (i / 4) * 8 + cq;
+    const float inv = hi ? inv1 : inv0;
+    const int chunk = ((col % 64) / 8) ^ (r % 8);
+    *reinterpret_cast<uint32_t*>(q_tile + (col / 64) * (kQWGBytes / 2) + r * 128 +
+                                 chunk * 16 + (col % 8) * 2) =
+        pack_bf16(acc[i] * inv, acc[i + 1] * inv);
   }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-           int H, int KVH, int Sq, int Sk, int causal, float scale,
-           cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse),
-      H, KVH, Sq, Sk, causal, scale);
-  TK_RETURN_LAST_ERROR();
+  fence_proxy_async();
+  named_barrier_sync<128>(1 + wg);
+  if (tid == 0) {
+    for (int half = 0; half < 2; ++half)
+      tma_store_4d(&o_map, q_tile + half * (kQWGBytes / 2), half * 64, h,
+                   q0 + wg * kRowsWG, b);
+    tma_store_wait();
+  }
+  if (lane % 4 == 0) {
+    float* out = lse + (static_cast<long long>(b) * H + h) * Sq;
+    if (row0 < Sq) out[row0] = m0 * scale + logf(l0 == 0.0f ? 1.0f : l0);
+    if (row0 + 8 < Sq) out[row0 + 8] = m1 * scale + logf(l1 == 0.0f ? 1.0f : l1);
+  }
 }
 
 }  // namespace
-}  // namespace flash
 
-extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                            void* lse, int B, int H, int KVH, int Sq, int Sk, int D,
-                            int causal, float scale, void* stream) {
-  if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return flash::launch<128>(q, k, v, o, lse, B, H, KVH, Sq, Sk, causal, scale,
-                            static_cast<cudaStream_t>(stream));
+extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int B, int H, int KVH, int Sq, int Sk, int D, int causal,
+                            float scale, void* stream) {
+  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map, o_map;
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&o_map, o, B, Sq, H, D, kRowsWG);
+  if (err == cudaSuccess) err = allow_smem(flash_fwd_kernel, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
+  flash_fwd_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, o_map, static_cast<float*>(lse), B, H, KVH, Sq, Sk, causal, scale);
+  TK_RETURN_LAST_ERROR();
 }

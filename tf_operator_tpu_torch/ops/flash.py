@@ -13,14 +13,18 @@ The backward is the FlashAttention-2 split: one pass for dQ, one for dK/dV.
 ``delta = rowsum(dO * O) - dlse`` is computed here in plain torch, outside
 the kernels, as the JAX package computes it in XLA.
 
-A CUDA tensor goes through the kernels in ``ops/csrc/flash_fwd.cu`` and
-``ops/csrc/flash_bwd.cu`` (bf16, head_dim 128; fixed 64-row tiles); a
-CPU tensor through the plain versions, which emulate the kernels' blockwise
-online-softmax recurrence with ``block_q``/``block_k`` blocks that step down
-to a divisor of the sequence length (``_block_size``).
+A CUDA tensor goes through the kernels (bf16, head_dim 128, fixed tiles):
+``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_bwd.cu`` (dQ) and
+``ops/csrc/flash_dkv.cu`` (dK/dV); a CPU tensor through the plain versions,
+which emulate the kernels' blockwise online-softmax recurrence with
+``block_q``/``block_k`` blocks that step down to a divisor of the sequence
+length (``_block_size``). :func:`flash_work` counts the least bytes and
+FLOPs of each kernel call, for its roofline bound.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -58,6 +62,35 @@ def _grouped(q, k):
     kvh = k.shape[2]
     qg = q.permute(0, 2, 1, 3).reshape(b, kvh, h // kvh, s_q, d)
     return qg, k.permute(0, 2, 1, 3)[:, :, None]
+
+
+class Work(NamedTuple):
+    """The least work of one kernel call: bytes that must move (each input
+    read once, each output written once) and tensor-core FLOPs."""
+
+    bytes: int
+    flops: int
+
+
+def flash_work(b: int, s_q: int, s_k: int, h: int, kvh: int, d: int,
+               causal: bool) -> dict[str, Work]:
+    """Bytes and tensor-core FLOPs of the forward, dQ and dK/dV kernels on
+    bf16 q ``[b, s_q, h, d]`` and k/v ``[b, s_k, kvh, d]``, with fp32 lse and
+    delta ``[b, h, s_q]``. FLOPs count only the visible (q, k) pairs: 2 per
+    pair and head dim for each product, of which the forward has 2 (Q K^T,
+    P V), dQ 3 (adds dO V^T, dS K) and dK/dV 4 (adds dS^T Q, P^T dO)."""
+    if causal and s_q != s_k:
+        raise ValueError("causal attention requires s_q == s_k")
+    pairs = b * h * (s_q * (s_q + 1) // 2 if causal else s_q * s_k)
+    q_bytes = 2 * b * s_q * h * d        # q, o, dO and dQ alike
+    kv_bytes = 2 * b * s_k * kvh * d     # k, v, dK and dV alike
+    rows_bytes = 4 * b * h * s_q         # lse, delta
+    qkv = q_bytes + 2 * kv_bytes
+    return {
+        "flash_fwd": Work(qkv + q_bytes + rows_bytes, 4 * pairs * d),
+        "flash_dq": Work(qkv + 2 * q_bytes + 2 * rows_bytes, 6 * pairs * d),
+        "flash_dkv": Work(qkv + q_bytes + 2 * rows_bytes + 2 * kv_bytes, 8 * pairs * d),
+    }
 
 
 def _causal_mask(q_start, bq, k_start, bk, device):
