@@ -8,15 +8,19 @@ Phases (any failure raises and the script exits non-zero):
   (b) build: nvcc builds every kernel of tf_operator_tpu_torch/ops/csrc
       into build/torch_kernels/ (timed; registers and spills printed);
   (c) kernels against their plain versions, on the card in bf16: rope
-      (forward and the -sin backward), the flash forward (o, lse), dQ and
-      dK/dV (with and without a dlse cotangent), at the llama-400m shapes
-      [8, 2048, 8, 128] causal and in GQA 8:2, non-causal, cross-length,
-      seq-96, seq-200 and GQA 8:1 seq-320 cases (the last three end inside
-      a 128-row tile); each kernel's median time over CUDA events, its
-      plain version's, its bound (ops/flash.py flash_work) and share of it
+      (forward and the inverse backward), the flash forward (o, lse), dQ
+      and dK/dV (with and without a dlse cotangent), at the llama-400m
+      shapes [8, 2048, 8, 128] causal and in GQA 8:2, non-causal,
+      cross-length, seq-96, seq-200, GQA 8:1 seq-320 (the last three end
+      inside a 128-row tile) and non-causal GQA 8:2 cross-length cases with
+      both lengths ragged; each kernel's median time over CUDA events
+      (rope's over replays of a CUDA graph of 20 calls, as it is shorter
+      than its wrapper's host cost), its plain version's, its bound
+      (ops/flash.py flash_work, ops/rope.py rope_work) and share of it
       and, for the forward, the time of torch's
       scaled_dot_product_attention as a yardstick (timed here only; the
-      port never calls it);
+      port never calls it); for rope also its time by events without a
+      graph, the host cost of a wrapper call, and a copy of x both ways;
   (d) full-width parity: a 2-layer model at llama-400m width from one set
       of seeded weights, bs 1, seq 2048: loss and per-parameter gradient
       norms on the card (kernels, bf16) against the CPU (plain, fp32);
@@ -50,6 +54,7 @@ CASES = {
     "seq_96": dict(b=2, s=96, h=8, kvh=8, d=128, causal=True),
     "seq_200": dict(b=2, s=200, h=8, kvh=8, d=128, causal=True),
     "gqa_8_1_320": dict(b=2, s=320, h=8, kvh=1, d=128, causal=True),
+    "cross_ragged": dict(b=2, s=200, s_k=328, h=8, kvh=2, d=128, causal=False),
 }
 # max |kernel - plain| / max |plain| allowed, in bf16 (unit roundoff 3.9e-3):
 # rope does the same fp32 math (1 bf16 rounding apart at most); the flash
@@ -63,7 +68,7 @@ SOURCES = {
     "rope": ("tf_operator_tpu_torch/ops/csrc/rope.cu", "tf_operator_tpu/ops/rope_pallas.py:54"),
     "flash_fwd": ("tf_operator_tpu_torch/ops/csrc/flash_fwd.cu",
                   "tf_operator_tpu/ops/flash_pallas.py:185"),
-    "flash_dq": ("tf_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_dq": ("tf_operator_tpu_torch/ops/csrc/flash_dq.cu",
                  "tf_operator_tpu/ops/flash_pallas.py:393"),
     "flash_dkv": ("tf_operator_tpu_torch/ops/csrc/flash_dkv.cu",
                   "tf_operator_tpu/ops/flash_pallas.py:426"),
@@ -82,24 +87,48 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 3,
+            graph: bool = False) -> float:
     """Time of one call: CUDA events around ``iters`` back-to-back calls,
-    over the count, so that the host's cost of launching hides behind the
-    device's work as it does in a training step (events around a single
-    short launch would time the host); the median of ``repeats`` such runs."""
+    over the count; the median of ``repeats`` such runs. Events around a
+    single short launch would time the host; so would back-to-back calls of
+    a kernel shorter than its wrapper's host cost (rope). With ``graph``,
+    the ``iters`` calls are captured in one CUDA graph and the events hold
+    ``iters`` replays of it, so that the host launches once per ``iters``
+    kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    step, calls = fn, iters
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        step, calls = g.replay, iters * iters
+        step()
+        torch.cuda.synchronize()
     runs = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            fn()
+            step()
         end.record()
         runs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) / iters for s, e in runs)
+    return statistics.median(s.elapsed_time(e) / calls for s, e in runs)
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time of one call, the device left to catch up afterwards."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
 
 
 def rel_max_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -135,13 +164,12 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
         q, k, v = randn(b, s, h, d), randn(b, s_k, kvh, d), randn(b, s_k, kvh, d)
         do, dlse = randn(b, s, h, d), torch.randn(b, h, s, device=dev, generator=gen)
         cos, sin = rope_table(d, s, 10000.0, dev)
-        neg_sin = -sin
 
         err = {}
         err["rope"] = check("rope", case, rope_mod.rope_cuda(q, cos, sin),
                             rope_mod.rope_plain(q, cos, sin), TOL["rope"])
-        err["rope_bwd"] = check("rope", case + "-bwd", rope_mod.rope_cuda(do, cos, neg_sin),
-                                rope_mod.rope_plain(do, cos, neg_sin), TOL["rope"])
+        err["rope_bwd"] = check("rope", case + "-bwd", rope_mod.rope_cuda(do, cos, sin, True),
+                                rope_mod.rope_plain(do, cos, sin, True), TOL["rope"])
         causal = c["causal"]
         o, lse = flash.flash_forward_cuda(q, k, v, causal)
         po, plse = flash.flash_forward_plain(q, k, v, causal)
@@ -165,7 +193,7 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
             # name: (kernel, plain, library, bytes moved, tensor-core flops)
             "rope": (lambda: rope_mod.rope_cuda(q, cos, sin),
                      lambda: rope_mod.rope_plain(q, cos, sin), None,
-                     2 * 2 * q.numel() + 2 * 4 * cos.numel(), 0),
+                     *rope_mod.rope_work(b, s, h, d)),
             "flash_fwd": (lambda: flash.flash_forward_cuda(q, k, v, causal),
                           lambda: flash.flash_forward_plain(q, k, v, causal),
                           lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -190,7 +218,7 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
                 "name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": None,
                 "max_abs_err": errs[name],
-                "ms": time_ms(kern),
+                "ms": time_ms(kern, graph=name == "rope"),
                 "plain_ms": time_ms(plain, iters=5, warmup=1),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -200,6 +228,11 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
                 f"bound (plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
                 f"{res['bound_by']}, library {res['library_ms']}) bytes {nbytes} flops {flops}")
             results[name] = res
+        rope = work["rope"][0]
+        log(f"[c] rope by events over back-to-back calls {time_ms(rope):.4f} ms; host cost "
+            f"of a rope_cuda call {host_ms(rope):.4f} ms; yardstick, a copy of x (the same "
+            f"bytes less the tables) {time_ms(lambda: q.clone(), graph=True):.4f} ms in a "
+            f"graph, {time_ms(lambda: q.clone()):.4f} ms by events")
     return results
 
 

@@ -5,6 +5,7 @@ points refuse to run on the CPU unasked."""
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -13,11 +14,13 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tf_operator_tpu_torch"
+CSRC = PORT / "ops" / "csrc"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu"}
 MODULES = [
     "tf_operator_tpu_torch",
     "tf_operator_tpu_torch.device",
     "tf_operator_tpu_torch.ops.build",
+    "tf_operator_tpu_torch.ops.roofline",
     "tf_operator_tpu_torch.ops.rope",
     "tf_operator_tpu_torch.ops.flash",
     "tf_operator_tpu_torch.ops.attention",
@@ -117,3 +120,46 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_sources_exist():
+    import chip_smoke
+
+    for name, (source, replaces) in chip_smoke.SOURCES.items():
+        assert (ROOT / source).is_file(), f"{name}: {source} is missing"
+        path, line = replaces.rsplit(":", 1)
+        assert int(line) <= len((ROOT / path).read_text().splitlines()), replaces
+
+
+def _extern_c_functions(text):
+    """Names of the functions defined with C linkage: `extern "C" T f(...)`
+    or inside an `extern "C" { ... }` block (its braces matched)."""
+    names = set(re.findall(r'extern "C" [^{(;]*?\b(\w+)\(', text))
+    for m in re.finditer(r'extern "C" \{', text):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        block = text[m.end():i]
+        names.update(re.findall(r"^[A-Za-z][^(;=]*?\b(\w+)\(", block, re.M))
+    return names
+
+
+def test_every_signature_is_defined_in_csrc():
+    """Each entry point build.load binds is a C function of some .cu file."""
+    from tf_operator_tpu_torch.ops import build
+
+    defined = set()
+    for src in CSRC.glob("*.cu"):
+        defined |= _extern_c_functions(src.read_text())
+    missing = (set(build._SIGNATURES) | {"tk_error_string"}) - defined
+    assert not missing, f"no extern \"C\" definition of {sorted(missing)}"
+
+
+def test_every_csrc_include_exists():
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    assert sources
+    for src in sources:
+        for name in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
+            assert (CSRC / name).is_file(), f"{src.name} includes missing {name}"
+        assert "<mma.h>" not in src.read_text(), f"{src.name} still uses WMMA"

@@ -1,5 +1,6 @@
-"""The roofline accounting of the flash kernels (ops/flash.py flash_work),
-which chip_smoke.py divides by the card's peaks to get each kernel's bound.
+"""The roofline accounting of the kernels (ops/flash.py flash_work,
+ops/rope.py rope_work), which chip_smoke.py divides by the card's peaks to
+get each kernel's bound.
 
 The llama-400m counts are pinned by hand: bs 8, seq 2048, 8 heads x 128,
 causal has b * h * s (s + 1) / 2 = 134,283,264 visible (q, k) pairs.
@@ -7,7 +8,9 @@ causal has b * h * s (s + 1) / 2 = 134,283,264 visible (q, k) pairs.
 
 import pytest
 
-from tf_operator_tpu_torch.ops.flash import Work, flash_work
+from tf_operator_tpu_torch.ops.flash import flash_work
+from tf_operator_tpu_torch.ops.rope import rope_work
+from tf_operator_tpu_torch.ops.roofline import Work
 
 PAIRS = 134_283_264
 Q_BYTES = 2 * 8 * 2048 * 8 * 128      # one bf16 [8, 2048, 8, 128] tensor
@@ -69,3 +72,10 @@ def test_non_causal_counts_every_pair(s_q, s_k):
 def test_causal_cross_length_is_refused():
     with pytest.raises(ValueError):
         flash_work(2, 256, 640, 8, 8, 128, causal=True)
+
+
+def test_rope_bytes_at_llama_400m():
+    """x read and written once, plus the cos and sin tables: bytes bound."""
+    w = rope_work(8, 2048, 8, 128)
+    assert w == Work(2 * 2 * 8 * 2048 * 8 * 128 + 2 * 4 * 2048 * 64, 0)
+    assert w.bytes / 3.35e12 * 1e3 == pytest.approx(0.0203, abs=5e-5)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from tf_operator_tpu.models.llama import rope_table as jax_rope_table
-from tf_operator_tpu.ops.rope_pallas import rope_pallas
+from tf_operator_tpu.ops.rope_pallas import _rope_bwd, rope_pallas
 from tf_operator_tpu_torch.models.llama import apply_rope, rope_table
 from tf_operator_tpu_torch.ops.rope import rope, rope_plain
 
@@ -68,6 +68,18 @@ def test_rotation_inverse_property():
     tx, c, s = torch.from_numpy(x), torch.from_numpy(cos), torch.from_numpy(sin)
     np.testing.assert_allclose(rope_plain(rope_plain(tx, c, s), c, -s).numpy(), x,
                                atol=1e-5)
+
+
+def test_inverse_flag_is_the_backward_rotation():
+    """inverse=True (the kernel's flag, taken by the backward) is the
+    rotation by the negated table, and the JAX package's _rope_bwd."""
+    x, g, cos, sin = inputs(4)
+    c, s = torch.from_numpy(cos), torch.from_numpy(sin)
+    got = rope_plain(torch.from_numpy(g), c, s, inverse=True)
+    np.testing.assert_allclose(got.numpy(), rope_plain(torch.from_numpy(g), c, -s).numpy(),
+                               atol=1e-5)
+    ref, _, _ = _rope_bwd(512, True, (jnp.asarray(cos), jnp.asarray(sin)), jnp.asarray(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
 @pytest.mark.parametrize("shared", [True, False], ids=["kernel_path", "broadcast_path"])

@@ -48,7 +48,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (ops/csrc/*.cu).
 _SIGNATURES = {
-    "tk_rope": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tk_rope": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "tk_flash_dq": [_P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cu,
-// flash_dkv.cu), as inline PTX:
+// flash_dq.cu, flash_dkv.cu), as inline PTX:
 //
 // - mbarriers: init, arrive, arrive/expect-tx, try-wait on a phase parity;
 // - TMA: a 4-D tiled load into shared memory that completes on an mbarrier,

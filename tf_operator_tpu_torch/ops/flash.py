@@ -14,7 +14,7 @@ The backward is the FlashAttention-2 split: one pass for dQ, one for dK/dV.
 the kernels, as the JAX package computes it in XLA.
 
 A CUDA tensor goes through the kernels (bf16, head_dim 128, fixed tiles):
-``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_bwd.cu`` (dQ) and
+``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ) and
 ``ops/csrc/flash_dkv.cu`` (dK/dV); a CPU tensor through the plain versions,
 which emulate the kernels' blockwise online-softmax recurrence with
 ``block_q``/``block_k`` blocks that step down to a divisor of the sequence
@@ -24,11 +24,10 @@ FLOPs of each kernel call, for its roofline bound.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from . import build
+from .roofline import Work
 
 # Large-but-finite mask value: exp(x - x) on a fully-masked row must not
 # produce inf - inf = nan.
@@ -62,14 +61,6 @@ def _grouped(q, k):
     kvh = k.shape[2]
     qg = q.permute(0, 2, 1, 3).reshape(b, kvh, h // kvh, s_q, d)
     return qg, k.permute(0, 2, 1, 3)[:, :, None]
-
-
-class Work(NamedTuple):
-    """The least work of one kernel call: bytes that must move (each input
-    read once, each output written once) and tensor-core FLOPs."""
-
-    bytes: int
-    flops: int
 
 
 def flash_work(b: int, s_q: int, s_k: int, h: int, kvh: int, d: int,
