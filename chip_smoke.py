@@ -24,23 +24,49 @@ Phases (any failure raises and the script exits non-zero):
   (d) full-width parity: a 2-layer model at llama-400m width from one set
       of seeded weights, bs 1, seq 2048: loss and per-parameter gradient
       norms on the card (kernels, bf16) against the CPU (plain, fp32);
-  (e) training: llama-400m at full width and depth through the
-      llama_train entry point, 1 warm-up step and 3 timed steps at bs 8,
-      seq 2048, with the kernels' launch counters reset just before and
-      read just after (reported per run and per step).
+  (e) training, the main path: llama-400m at full width and depth through
+      the llama_train entry point at its default remat policy "dots", 1
+      warm-up step and 3 timed steps at bs 8, seq 2048 (lr warmup of 1
+      step, so that the weights move from the second update on), with the
+      kernels' launch counters and the peak device memory reset just
+      before and read just after; launches per step must be rope 144,
+      flash_fwd 24, flash_dq 24 and flash_dkv 24 (the flash forward is
+      saved, not replayed); tokens/s and MFU;
+  (f) remat policies: the same run under "nothing", "dots" and
+      "dots+rope": step time, peak memory and launches per step of each
+      (flash_fwd 48 under "nothing", rope 96 under "dots+rope"); all 4
+      losses agree within 1e-3 relative, and every parameter's gradient
+      of one backward on the first batch within 1e-2 relative (L2) of
+      "nothing"'s;
+  (g) data: a seeded uint16 token file written into a temporary directory
+      (nothing is downloaded); the native loader must build and run, and
+      its first batches equal the Python path's byte for byte;
+      llama_train --data runs 3 steps with the device prefetch stage, and
+      the same steps on the host batches without it give the same losses;
+  (h) the sharded step: a one-rank NCCL group in this process, mesh
+      {"fsdp": 1}, the FSDP2-sharded llama-400m born sharded through the
+      entry point for 4 steps from phase e's seed; its losses agree with
+      phase e's, and its gradients of one backward with phase f's "dots"
+      ones, at phase f's tolerances.
 
-The last lines are the nvidia-smi line, one JSON line of per-kernel
-results, and {"ok": true, "device": {...}}.
+Phases e-h each reset the launch counters just before their runs and read
+them just after. The last lines are the nvidia-smi line, one JSON line of
+per-kernel results (launches from phase e), and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -64,6 +90,14 @@ CASES = {
 TOL = {"rope": 1e-2, "o": 2e-2, "lse": 1e-4, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
 # Phase (d): bf16 kernels on the card against fp32 plain on the CPU.
 PARITY_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
+# Phases (f) and (h): the same bf16 steps under another remat policy, or
+# sharded, from the same seed and batches; remat and a one-rank FSDP2
+# change no arithmetic, only where its sums may run. A gradient that the
+# replay or the sharding got wrong differs by far more.
+LOSS_TOL = 1e-3
+GRAD_TOL = 1e-2
+MAIN_ARGS = ["--model", "llama-400m", "--batch", "8", "--seq", "2048", "--log-every", "1",
+             "--warmup", "1"]
 SOURCES = {
     "rope": ("tf_operator_tpu_torch/ops/csrc/rope.cu", "tf_operator_tpu/ops/rope_pallas.py:54"),
     "flash_fwd": ("tf_operator_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -277,35 +311,185 @@ def phase_d():
     torch.cuda.empty_cache()
 
 
-def phase_e(build, peak):
-    """llama-400m through the llama_train entry point, counters around it."""
+def expected_launches(policy: str, layers: int) -> dict:
+    """Kernel launches per training step: the forward's two ropes and one
+    flash forward per layer, the backward's two ropes, dQ and dK/dV, and
+    the replay of what the policy does not save."""
+    saved = set(policy.split("+"))
+    return {"rope": (4 if "rope" in saved else 6) * layers,
+            "flash_fwd": (1 if "dots" in saved else 2) * layers,
+            "flash_dq": layers, "flash_dkv": layers}
+
+
+def train_run(build, peak, phase: str, argv: list) -> dict:
+    """One llama_train run with the launch counters and the peak device
+    memory reset just before it and read just after; prints and returns
+    losses, step times, tokens/s, MFU, peak memory and launches."""
     from tf_operator_tpu_torch.train import llama_train
 
-    args = llama_train.parse_args(["--model", "llama-400m", "--batch", "8", "--seq", "2048",
-                                   "--steps", "4", "--log-every", "1"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = llama_train.parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     out = llama_train.run(args)
-    launches = dict(build.LAUNCHES)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    losses, secs = out["losses"], out["step_seconds"]
-    timed = secs[1:]
-    tps = out["tokens_per_step"] * len(timed) / sum(timed)
-    mfu = tps * out["config"].flops_per_token(args.seq) / (peak.bf16_tflops * 1e12)
-    log(f"[e] losses {losses}")
-    log(f"[e] step seconds {secs} (first is warm-up)")
-    log(f"[e] tokens/s {tps:.1f} MFU {mfu:.4f} (peak {peak.bf16_tflops} TFLOP/s); "
-        f"peak device memory {peak_gib:.2f} GiB")
-    log(f"[e] launches in {len(secs)} steps {launches} (per step with per-block remat: "
-        "rope 144, flash_fwd 48, flash_dq 24, flash_dkv 24)")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss {losses}")
-    if abs(losses[0] - math.log(out["config"].vocab_size)) > 0.5:
-        raise AssertionError(f"first loss {losses[0]} is far from ln(vocab)")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return launches, len(secs)
+    out["launches"] = dict(build.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    steps, timed = len(out["step_seconds"]), out["step_seconds"][1:]
+    out["step_s"] = sum(timed) / len(timed)
+    out["tokens_per_s"] = out["tokens_per_step"] / out["step_s"]
+    out["mfu"] = (out["tokens_per_s"] * out["config"].flops_per_token(args.seq)
+                  / (peak.bf16_tflops * 1e12))
+    out["per_step"] = {k: n / steps for k, n in out["launches"].items()}
+    policy = out["config"].remat_policy
+    log(f"[{phase}] remat_policy {policy}: losses {out['losses']}")
+    log(f"[{phase}] remat_policy {policy}: step seconds {out['step_seconds']} (first is "
+        f"warm-up); mean timed step {out['step_s']:.4f} s, tokens/s "
+        f"{out['tokens_per_s']:.1f}, MFU {out['mfu']:.4f} (peak {peak.bf16_tflops} "
+        f"TFLOP/s); peak device memory {out['peak_gib']:.3f} GiB")
+    log(f"[{phase}] remat_policy {policy}: launches in {steps} steps {out['launches']}, "
+        f"per step {out['per_step']}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss {out['losses']}")
+    want = expected_launches(policy, out["config"].n_layers)
+    if out["per_step"] != want:
+        raise AssertionError(f"launches per step {out['per_step']}, expected {want}")
+    return out
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_e(build, peak) -> dict:
+    """The main path: llama-400m through the llama_train entry point."""
+    out = train_run(build, peak, "e", [*MAIN_ARGS, "--steps", "4"])
+    if abs(out["losses"][0] - math.log(out["config"].vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {out['losses'][0]} is far from ln(vocab)")
+    return out
+
+
+def first_grads(argv: list) -> dict:
+    """Every parameter's gradient (whole, for a sharded model) after one
+    forward and backward on the run's first batch, from the entry point's
+    own setup."""
+    from torch.distributed.tensor import DTensor
+
+    from tf_operator_tpu_torch.train import llama_train
+    from tf_operator_tpu_torch.train.train_step import loss_fn
+
+    gc.collect()
+    s = llama_train.setup(llama_train.parse_args(argv))
+    model = s.state.model
+    tokens = torch.as_tensor(next(s.dataset)).to(device=s.batches.device, dtype=torch.long)
+    loss_fn(model, tokens).backward()
+    grads = {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad).detach()
+             for n, p in model.named_parameters()}
+    del s, model
+    return grads
+
+
+def check_grads(phase: str, what: str, got: dict, ref: dict) -> None:
+    """Each gradient within GRAD_TOL of its reference, in relative L2."""
+    worst, worst_name = 0.0, ""
+    for name, g in got.items():
+        r = ((g.float() - ref[name].float()).norm() / ref[name].float().norm().clamp(min=1e-30)).item()
+        if not r <= worst:
+            worst, worst_name = r, name
+    log(f"[{phase}] {what}: worst gradient rel L2 {worst:.3e} at {worst_name} over "
+        f"{len(got)} parameters (tol {GRAD_TOL})")
+    if len(got) != len(ref) or not worst <= GRAD_TOL:
+        raise AssertionError(f"{what}: gradient of {worst_name} differs by {worst:.3e}")
+
+
+def check_losses(phase: str, what: str, got: list, ref: list) -> None:
+    """Every loss within LOSS_TOL of its reference."""
+    worst = max(rel(a, b) for a, b in zip(got, ref))
+    log(f"[{phase}] {what}: losses {got} against {ref}: worst rel {worst:.3e} (tol {LOSS_TOL})")
+    if len(got) != len(ref) or not worst <= LOSS_TOL:
+        raise AssertionError(f"{what}: losses differ by {worst:.3e}")
+
+
+def phase_f(build, peak) -> dict:
+    """The remat policies' trade: step time, peak memory, launches; their
+    losses and gradients agree. Returns "dots"'s first gradients."""
+    runs = {p: train_run(build, peak, "f", [*MAIN_ARGS, "--steps", "4", "--remat-policy", p])
+            for p in ("nothing", "dots", "dots+rope")}
+    base = runs["nothing"]
+    for policy, out in runs.items():
+        log(f"[f] {policy:10s} step {out['step_s']:.4f} s ({base['step_s'] / out['step_s']:.3f}x "
+            f"'nothing'), peak {out['peak_gib']:.3f} GiB ({out['peak_gib'] - base['peak_gib']:+.3f}), "
+            f"launches/step {out['per_step']}")
+        check_losses("f", f"{policy} against 'nothing'", out["losses"], base["losses"])
+    ref = first_grads([*MAIN_ARGS, "--remat-policy", "nothing"])
+    for policy in ("dots", "dots+rope"):
+        grads = first_grads([*MAIN_ARGS, "--remat-policy", policy])
+        check_grads("f", f"{policy} against 'nothing'", grads, ref)
+        if policy == "dots":
+            dots = grads
+        del grads
+    return dots
+
+
+def phase_g(build, peak):
+    """Token-file data through the native loader and the device prefetch."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.train import data, llama_train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        rng = np.random.default_rng(0)
+        data.write_token_file(path, rng.integers(0, 32000, 4_000_000).astype(np.uint16))
+        native = data.TokenFileDataset(path, 8, 2048, dtype="uint16")
+        plain = data.TokenFileDataset(path, 8, 2048, dtype="uint16", force_python=True)
+        same = all(next(native).tobytes() == next(plain).tobytes() for _ in range(3))
+        ran = native.native
+        log(f"[g] native loader ran: {ran}; 3 batches byte-equal to the Python path: {same}")
+        native.close()
+        if not ran:
+            raise AssertionError("the native loader did not build or load")
+        if not same:
+            raise AssertionError("the native loader's batches differ from the Python path's")
+        argv = [*MAIN_ARGS, "--steps", "3", "--data", path, "--data-dtype", "uint16"]
+        on = train_run(build, peak, "g", argv)
+        log(f"[g] llama_train --data: native loader {on['native_loader']}")
+        if not on["native_loader"]:
+            raise AssertionError("llama_train --data did not run the native loader")
+        gc.collect()
+        s = llama_train.setup(llama_train.parse_args(argv))
+        state, off = s.state, []
+        for _ in range(3):
+            state, loss = s.step_fn(state, next(s.dataset))  # host batches, no prefetch
+            off.append(float(loss))
+        del s, state
+        log(f"[g] losses with prefetch {on['losses']}, without {off}")
+        if on["losses"] != off:
+            raise AssertionError("prefetch changed the losses")
+
+
+def phase_h(build, peak, main_losses: list, main_grads: dict) -> dict:
+    """The FSDP2-sharded step on a one-rank NCCL group: phase e's losses,
+    and phase f's "dots" gradients."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    os.environ["JAX_MESH_SPEC"] = '{"fsdp": 1}'
+    try:
+        out = train_run(build, peak, "h", [*MAIN_ARGS, "--steps", "4"])
+        grads = first_grads(MAIN_ARGS)
+    finally:
+        del os.environ["JAX_MESH_SPEC"]
+        dist.destroy_process_group()
+    if out["mesh"] != {"fsdp": 1}:
+        raise AssertionError(f"sharded run on mesh {out['mesh']}")
+    check_losses("h", "FSDP2 against phase e", out["losses"], main_losses)
+    check_grads("h", "FSDP2 against unsharded 'dots'", grads, main_grads)
+    return out
 
 
 def main() -> int:
@@ -335,10 +519,14 @@ def main() -> int:
 
     results = phase_c(flash, rope_mod, peak)
     phase_d()
-    launches, steps = phase_e(build, peak)
+    main = phase_e(build, peak)
+    dots_grads = phase_f(build, peak)
+    phase_g(build, peak)
+    phase_h(build, peak, main["losses"], dots_grads)
+    del dots_grads
     for name, res in results.items():
-        res["launches"] = launches[name]
-        res["launches_per_step"] = launches[name] / steps
+        res["launches"] = main["launches"][name]
+        res["launches_per_step"] = main["per_step"][name]
 
     log(smi_line())
     log(json.dumps({"kernels": list(results.values())}))

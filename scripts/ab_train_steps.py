@@ -1,7 +1,7 @@
 """Training throughput of two checkouts of the repo, in alternating pairs.
 
     python3 scripts/ab_train_steps.py PARENT_DIR CHANGE_DIR [--pairs 10]
-        [--steps 6] [--model llama-400m] [--batch 8] [--seq 2048]
+        [--steps 12] [--model llama-400m] [--batch 8] [--seq 2048]
 
 Runs the port's entry point (``python -m
 tf_operator_tpu_torch.train.llama_train``) from each checkout in turn, one
@@ -58,7 +58,7 @@ def main(argv=None) -> int:
     parser.add_argument("parent")
     parser.add_argument("change")
     parser.add_argument("--pairs", type=int, default=10)
-    parser.add_argument("--steps", type=int, default=6)
+    parser.add_argument("--steps", type=int, default=12)
     parser.add_argument("--model", default="llama-400m")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--seq", type=int, default=2048)

@@ -1,7 +1,7 @@
 """Where the time of one llama-400m training step goes on the GPU (PyTorch port).
 
     python3 scripts/profile_torch_step.py [--model llama-400m] [--batch 8]
-        [--seq 2048] [--steps 2]
+        [--seq 2048] [--steps 2] [--remat-policy dots]
 
 Builds the port's train step through the llama_train entry point's setup,
 runs one warm-up step, then traces ``--steps`` steps with torch.profiler
@@ -10,8 +10,9 @@ steps that end in a device synchronise), the device time of every kernel
 summed by group (the port's four hand-written kernels, matrix products,
 the optimizer's multi-tensor kernels, torch's elementwise and reduction
 kernels, everything else), the device's busy and idle share of the traced
-wall time, and the 25 kernels with the most device time. The last line is one JSON object of the same numbers. Needs
-one CUDA card.
+wall time, the peak device memory of the traced steps, and the 25 kernels
+with the most device time. The last line is one JSON object of the same
+numbers. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--seq", type=int, default=2048)
     parser.add_argument("--steps", type=int, default=2)
+    parser.add_argument("--remat-policy", default="dots")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_step: CUDA is not available", file=sys.stderr)
@@ -65,11 +67,14 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(smi, flush=True)
     targs = llama_train.parse_args(["--model", args.model, "--batch", str(args.batch),
-                                    "--seq", str(args.seq), "--steps", str(args.steps)])
-    _, state, step_fn, data = llama_train.setup(targs)
+                                    "--seq", str(args.seq), "--steps", str(args.steps),
+                                    "--remat-policy", args.remat_policy])
+    run = llama_train.setup(targs)
+    state, step_fn, data = run.state, run.step_fn, run.batches
     state, loss = step_fn(state, next(data))  # warm-up: kernel build, allocator
     float(loss)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -89,15 +94,18 @@ def main(argv=None) -> int:
         g["launches"] += e.count // args.steps
     busy = sum(g["ms"] for g in groups.values())
     step_ms = wall_ms / args.steps
-    print(f"step {step_ms:.2f} ms (wall, profiler on); device busy {busy:.2f} ms "
-          f"({busy / step_ms:.4f} of the step), idle {1 - busy / step_ms:.4f}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"remat_policy {args.remat_policy}: step {step_ms:.2f} ms (wall, profiler on); "
+          f"device busy {busy:.2f} ms ({busy / step_ms:.4f} of the step), idle "
+          f"{1 - busy / step_ms:.4f}; peak device memory {peak_gib:.2f} GiB")
     for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
         print(f"  {name:18s} {g['ms']:9.3f} ms/step {g['ms'] / busy:.4f} of busy, "
               f"{g['launches']} launches/step")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     print(json.dumps({"card": smi, "model": args.model, "batch": args.batch,
-                      "seq": args.seq, "step_ms": step_ms, "device_busy_ms": busy,
-                      "groups": groups}))
+                      "seq": args.seq, "remat_policy": args.remat_policy,
+                      "step_ms": step_ms, "device_busy_ms": busy,
+                      "peak_memory_gib": peak_gib, "groups": groups}))
     return 0
 
 

@@ -24,11 +24,19 @@ MODULES = [
     "tf_operator_tpu_torch.ops.rope",
     "tf_operator_tpu_torch.ops.flash",
     "tf_operator_tpu_torch.ops.attention",
+    "tf_operator_tpu_torch.ops.cross_entropy",
+    "tf_operator_tpu_torch.ops.remat",
     "tf_operator_tpu_torch.models.llama",
     "tf_operator_tpu_torch.models.convert",
     "tf_operator_tpu_torch.train.data",
     "tf_operator_tpu_torch.train.train_step",
     "tf_operator_tpu_torch.train.llama_train",
+    "tf_operator_tpu_torch.native.build",
+    "tf_operator_tpu_torch.runtime.gpu_init",
+    "tf_operator_tpu_torch.runtime.heartbeat",
+    "tf_operator_tpu_torch.parallel.mesh",
+    "tf_operator_tpu_torch.parallel.sharding",
+    "tf_operator_tpu_torch.testing.rendezvous_workload",
     "chip_smoke",
 ]
 

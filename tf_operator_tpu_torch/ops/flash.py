@@ -11,7 +11,10 @@ and an optional causal mask (which requires ``s_q == s_k``):
 
 The backward is the FlashAttention-2 split: one pass for dQ, one for dK/dV.
 ``delta = rowsum(dO * O) - dlse`` is computed here in plain torch, outside
-the kernels, as the JAX package computes it in XLA.
+the kernels, as the JAX package computes it in XLA. A remat policy that
+saves the forward's (o, lse) (the JAX package tags them ``flash_o``/
+``flash_lse``) names them ``"flash"`` on its tape (``ops/remat.py``): the
+block's replay then takes them back and launches no second forward.
 
 A CUDA tensor goes through the kernels (bf16, head_dim 128, fixed tiles):
 ``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ) and
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, remat
 from .roofline import Work
 
 # Large-but-finite mask value: exp(x - x) on a fully-masked row must not
@@ -299,9 +302,13 @@ def _on_cuda(t):
 
 
 def _forward(q, k, v, causal, block_q, block_k):
-    if _on_cuda(q):
-        return flash_forward_cuda(q, k, v, causal)
-    return flash_forward_plain(q, k, v, causal, block_q, block_k)
+    """(o, lse), or under a remat tape that saves "flash", the replay's
+    copy of them."""
+    def compute():
+        if _on_cuda(q):
+            return flash_forward_cuda(q, k, v, causal)
+        return flash_forward_plain(q, k, v, causal, block_q, block_k)
+    return remat.saved("flash", compute)
 
 
 def _backward(ctx, do, dlse):

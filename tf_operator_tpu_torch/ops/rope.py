@@ -9,15 +9,19 @@ inside the kernel (``_rope_bwd`` in the JAX package passes ``-sin``); the
 tables get no gradient.
 
 A CUDA tensor goes through ``ops/csrc/rope.cu``; a CPU tensor through
-:func:`rope_plain`. :func:`rope_work` counts the least bytes of a call, for
-its roofline bound.
+:func:`rope_plain`. A forward given a ``tag`` is served from the block's
+remat tape (``ops/remat.py``) in the replay when the policy saves that tag
+("dots+rope" saves ``rope_q`` and ``rope_k``). :func:`rope_work` counts the
+least bytes of a call, for its roofline bound.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from . import build
+from . import build, remat
 from .roofline import Work
 
 
@@ -81,17 +85,19 @@ def _rope_raw(x, cos, sin, inverse=False):
 
 class _Rope(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, cos, sin):
+    def forward(ctx, x, cos, sin, tag):
         ctx.save_for_backward(cos, sin)
-        return _rope_raw(x, cos, sin)
+        return remat.saved(tag, lambda: _rope_raw(x, cos, sin))
 
     @staticmethod
     def backward(ctx, g):
         cos, sin = ctx.saved_tensors
         # R(-θ): the rotation's transpose.
-        return _rope_raw(g.contiguous(), cos, sin, inverse=True), None, None
+        return _rope_raw(g.contiguous(), cos, sin, inverse=True), None, None, None
 
 
-def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Differentiable RoPE. x: [b, s, h, d]; cos/sin: [s, d/2] fp32."""
-    return _Rope.apply(x, cos, sin)
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+         tag: Optional[str] = None) -> torch.Tensor:
+    """Differentiable RoPE. x: [b, s, h, d]; cos/sin: [s, d/2] fp32; ``tag``
+    names the output to a remat policy (``rope_q``, ``rope_k``)."""
+    return _Rope.apply(x, cos, sin, tag)

@@ -1,31 +1,55 @@
-"""Llama pretraining on one GPU: the port's twin of
-``examples/jax/llama/llama_train.py``.
+"""Llama pretraining: the port's twin of ``examples/jax/llama/llama_train.py``.
 
     python -m tf_operator_tpu_torch.train.llama_train [--model llama-400m]
-        [--steps 100] [--batch 32] [--seq 2048] [--lr 3e-4] [--log-every 10]
+        [--steps 100] [--batch 32] [--seq 2048] [--lr 3e-4] [--warmup 100]
+        [--log-every 10]
+        [--data TOKENS --data-dtype int32|uint16] [--remat-policy dots]
         [--device cuda|cpu]
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 absent. The default model is llama-400m on CUDA and llama-tiny on the CPU.
-Prints the JAX script's ``[llama] step N loss X tokens/sec Y (Z/chip)``
-lines. Checkpointing, token-file data and multi-process runs are not ported
-yet (ROADMAP Queue 1): their flags are not accepted, and a ``WORLD_SIZE``
-above 1 is refused.
+
+One process per card. ``gpu_init`` rendezvouses from the operator-injected
+env (the JAXJob ``JAX_*`` contract, or a PyTorchJob's c10d env) and builds
+the declared mesh; whenever a process group is up, the train state is born
+sharded over it (FSDP2 over the data axes, tensor parallelism over ``tp``)
+and each rank reads the batch of its data-parallel coordinate: ``--batch``
+is global, and each rank takes ``--batch`` over the data-parallel size.
+Batches come from ``SyntheticTokens`` or, with ``--data``, from a token
+file through the native loader, and reach the card through
+``DevicePrefetch``. Prints the JAX script's ``[llama] process i/n
+devices=N mesh={...}`` and ``[llama] step N loss X tokens/sec Y (Z/chip)``
+lines, and publishes the step and tokens/s on the heartbeat at the log
+cadence. Checkpointing is not ported yet: ``--checkpoint-dir`` (or
+``CHECKPOINT_DIR``) is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
+from typing import Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models import llama
-from .data import SyntheticTokens
-from .train_step import init_train_state, make_optimizer, make_train_step
+from ..parallel.mesh import mesh_axes
+from ..parallel.sharding import data_coords
+from ..runtime import gpu_init
+from ..runtime.heartbeat import record_progress
+from .data import DevicePrefetch, SyntheticTokens, TokenFileDataset
+from .train_step import (
+    init_sharded_train_state,
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -36,61 +60,141 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--batch", type=int, default=32, help="global batch size")
     parser.add_argument("--seq", type=int, default=2048)
     parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--warmup", type=int, default=100,
+                        help="learning-rate warmup steps (the first update runs at lr 0)")
     parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--data", default="",
+                        help="token shard file (raw ids); synthetic when empty")
+    parser.add_argument("--data-dtype", default="int32", choices=["int32", "uint16"])
+    parser.add_argument("--remat-policy", default=None,
+                        help="the model's remat policy (default: the config's, 'dots')")
+    parser.add_argument("--checkpoint-dir", default=os.environ.get("CHECKPOINT_DIR", ""))
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.checkpoint_dir:
+        parser.error("--checkpoint-dir: checkpoint and restore are not ported yet "
+                     "(ROADMAP Queue 1 item 4)")
+    return args
 
 
-def setup(args: argparse.Namespace, seed: int = 0):
-    """What a run needs: (config, state, step_fn, data). The model is drawn
-    from a generator seeded with ``seed`` on the run's device."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-process training is not ported yet (WORLD_SIZE > 1)")
+def check_vocab(path: str, dtype: str, vocab_size: int, model: str) -> None:
+    """Refuse a token file whose ids fall outside the model's vocabulary.
+    Every process scans the same file prefix, before any collective, so the
+    verdict is the same on every host."""
+    head = np.memmap(path, dtype=dtype, mode="r")
+    head = head[: min(len(head), 10_000_000)]
+    lo, hi = int(head.min()), int(head.max())
+    if hi >= vocab_size or lo < 0:
+        raise SystemExit(
+            f"--data token ids span [{lo}, {hi}] but {model} has vocab_size="
+            f"{vocab_size}; the embedding gather would fail on them: pick a "
+            "matching --model/config")
+
+
+@dataclasses.dataclass
+class Setup:
+    """What a run needs, from :func:`setup`."""
+
+    config: llama.LlamaConfig
+    state: object
+    step_fn: object
+    batches: DevicePrefetch
+    dataset: object
+    topology: gpu_init.Topology
+    mesh: Optional[object]
+    local_batch: int
+
+
+def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
+    """Rendezvous, build the (sharded) train state and the input pipeline.
+    The model is drawn from a generator seeded with ``seed`` on the run's
+    device; a sharded model holds the same weights as an unsharded one."""
     device = resolve_device(args.device)
     if args.model is None:
         args.model = "llama-400m" if device.type == "cuda" else "llama-tiny"
     config = llama.CONFIGS[args.model]
     if device.type == "cpu":
         args.seq = min(args.seq, config.max_seq_len)
-    if args.seq != config.max_seq_len:
-        # Rope tables are built at max_seq_len; size them to the run (as
-        # bench.py does), which keeps the rope kernel on the table it takes.
-        config = type(config)(**{**config.__dict__, "max_seq_len": args.seq})
+    # Rope tables are built at max_seq_len; size them to the run (as
+    # bench.py does), which keeps the rope kernel on the table it takes.
+    config = dataclasses.replace(config, max_seq_len=args.seq)
+    if args.remat_policy is not None:
+        config = dataclasses.replace(config, remat_policy=args.remat_policy)
+    if args.data:
+        check_vocab(args.data, args.data_dtype, config.vocab_size, args.model)
+
+    topo = gpu_init.initialize(device=device)
+    mesh = gpu_init.global_mesh(topo, device) if dist.is_initialized() else None
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    data_rank, data_size = data_coords(mesh) if mesh is not None else (0, 1)
+    if args.batch % data_size:
+        raise SystemExit(f"--batch {args.batch} must divide by the data-parallel "
+                         f"size {data_size}")
+    local_batch = args.batch // data_size
+
     generator = torch.Generator(device=device).manual_seed(seed)
-    model = llama.Llama(config, device=device, generator=generator)
-    optimizer = make_optimizer(learning_rate=args.lr, decay_steps=max(args.steps, 101))
-    state = init_train_state(model, optimizer)
-    data = SyntheticTokens(args.batch, args.seq, config.vocab_size, seed=seed)
-    return config, state, make_train_step(optimizer), data
+    optimizer = make_optimizer(learning_rate=args.lr, warmup_steps=args.warmup,
+                               decay_steps=max(args.steps, args.warmup + 1))
+    if mesh is None:
+        state = init_train_state(llama.Llama(config, device=device, generator=generator),
+                                 optimizer)
+    else:
+        state = init_sharded_train_state(llama.Llama(config, device="meta"), optimizer,
+                                         mesh, device, generator)
+    if args.data:
+        dataset = TokenFileDataset(args.data, local_batch, args.seq, dtype=args.data_dtype,
+                                   process_id=data_rank, num_processes=data_size,
+                                   skip_windows=state.step * local_batch)
+    else:
+        dataset = SyntheticTokens(local_batch, args.seq, config.vocab_size, seed=data_rank)
+    return Setup(config, state, make_train_step(optimizer),
+                 DevicePrefetch(dataset, device, depth=2), dataset, topo, mesh, local_batch)
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Train ``args.steps`` steps; returns the losses and the wall time of
-    each step (each step ends in a device synchronise)."""
-    config, state, step_fn, data = setup(args)
-    device = next(state.model.parameters()).device
+    """Train ``args.steps`` steps; returns the losses (the global batch's)
+    and the wall time of each step (each step ends in a device
+    synchronise)."""
+    s = setup(args)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    device = torch.device(s.batches.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"[llama] process 0/1 devices=1 device={device} ({name}) model={args.model} "
-          f"params={config.param_count():,}", flush=True)
+    mesh = mesh_axes(s.mesh) if s.mesh is not None else {}
+    slice_note = (f" slice={s.topology.slice_index}/{s.topology.num_slices}"
+                  if s.topology.num_slices > 1 else "")
+    print(f"[llama] process {s.topology.process_id}/{s.topology.num_processes} "
+          f"devices={world} mesh={mesh}{slice_note} device={device} ({name}) "
+          f"model={args.model} params={s.config.param_count():,} "
+          f"remat_policy={s.config.remat_policy}", flush=True)
     losses, seconds = [], []
+    state = s.state
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(state.step, args.steps):
         t_step = time.perf_counter()
-        state, loss = step_fn(state, next(data))
+        state, loss = s.step_fn(state, next(s.batches))
         losses.append(float(loss))  # waits for the device
         seconds.append(time.perf_counter() - t_step)
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.perf_counter() - t0
-            tps = (step + 1) * args.batch * args.seq / max(dt, 1e-9)
+            tps = len(losses) * args.batch * args.seq / max(dt, 1e-9)
             print(f"[llama] step {step} loss {losses[-1]:.4f} "
-                  f"tokens/sec {tps:,.0f} ({tps:,.0f}/chip)", flush=True)
+                  f"tokens/sec {tps:,.0f} ({tps / world:,.0f}/chip)", flush=True)
+            # Log cadence, not per step: each call wakes the heartbeat thread.
+            record_progress(step=step, tokens_per_sec=tps)
     print("[llama] done", flush=True)
-    return {"config": config, "losses": losses, "step_seconds": seconds,
-            "tokens_per_step": args.batch * args.seq, "device": name}
+    return {"config": s.config, "losses": losses, "step_seconds": seconds,
+            "tokens_per_step": args.batch * args.seq, "device": name, "mesh": mesh,
+            "native_loader": getattr(s.dataset, "native", None)}
 
 
 def main(argv=None) -> int:
-    run(parse_args(argv))
+    was_up = dist.is_initialized()
+    try:
+        run(parse_args(argv))
+    finally:
+        if not was_up and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

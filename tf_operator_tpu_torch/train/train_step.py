@@ -1,6 +1,8 @@
-"""Training step: chunked cross-entropy loss, optax-exact AdamW, one step.
+"""Training step: the next-token loss, optax-exact AdamW, one step.
 
-Counterpart of ``tf_operator_tpu/train/train_step.py`` on one device. The
+Counterpart of ``tf_operator_tpu/train/train_step.py``, unsharded or sharded
+(``init_sharded_train_state``: FSDP2 and tensor parallelism over a device
+mesh, ``parallel/sharding.py``). The
 optimizer reproduces ``make_optimizer``'s optax chain rather than torch's
 defaults, because that is where an optimizer port drifts:
 
@@ -12,7 +14,9 @@ defaults, because that is where an optimizer port drifts:
   (norm scales included), moments kept in the parameter dtype.
 
 Parameters and moments are updated in place (the JAX step donates its
-state buffers for the same reason: no second copy of the model).
+state buffers for the same reason: no second copy of the model). On a
+sharded model each rank updates its own shards: AdamW is elementwise, so
+only the clip's global norm needs the other ranks (one all-reduce).
 """
 
 from __future__ import annotations
@@ -21,66 +25,58 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
+import torch.distributed as dist
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor
 
-# Sequence positions per lm-head/loss chunk.
-CE_CHUNK = 512
-
-
-def _masked_nll(logits, targets, ignore_id: int = -1):
-    """(negative-log-likelihood sum, valid-token count) in fp32;
-    ``ignore_id`` targets masked out."""
-    logits = logits.float()
-    mask = (targets != ignore_id).float()
-    log_probs = torch.log_softmax(logits, dim=-1)
-    ll = log_probs.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
-    return -(ll * mask).sum(), mask.sum()
-
-
-def cross_entropy_loss(logits, targets, ignore_id: int = -1):
-    """Mean next-token cross entropy in fp32; ``ignore_id`` targets masked out."""
-    nll, count = _masked_nll(logits, targets, ignore_id)
-    return nll / count.clamp(min=1.0)
-
-
-def chunked_cross_entropy(hidden, weight, targets, chunk: int = CE_CHUNK,
-                          ignore_id: int = -1, bias=None):
-    """Next-token CE with the lm head (``weight`` [vocab, d], Linear layout)
-    applied per sequence chunk: the [b, s, vocab] fp32 logits never exist
-    whole, only [b, chunk, vocab] at a time. Each chunk runs under
-    ``torch.utils.checkpoint``, so the backward keeps only the (hidden,
-    target) chunk and recomputes its logits: without it autograd would save
-    every chunk's log-softmax, the full logits again."""
-    b, s, _ = hidden.shape
-    pad = (-s) % chunk
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        targets = F.pad(targets, (0, pad), value=ignore_id)
-
-    def per_chunk(h, t):
-        logits = F.linear(h, weight)
-        if bias is not None:
-            logits = logits + bias
-        return _masked_nll(logits, t, ignore_id)
-
-    total = count = 0.0
-    for start in range(0, s + pad, chunk):
-        nll, n = checkpoint(
-            per_chunk, hidden[:, start:start + chunk], targets[:, start:start + chunk],
-            use_reentrant=False,
-        )
-        total, count = total + nll, count + n
-    return total / count.clamp(min=1.0)
+from ..ops.cross_entropy import (  # noqa: F401 (the step's loss helpers)
+    chunked_cross_entropy,
+    cross_entropy_loss,
+)
 
 
 def loss_fn(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token LM loss: predict tokens[:, 1:] from tokens[:, :-1], with
-    the head cast to the hidden dtype and applied per chunk."""
-    hidden = model(tokens[:, :-1], return_hidden=True)
-    weight = model.output.weight.to(hidden.dtype)
-    return chunked_cross_entropy(hidden, weight, tokens[:, 1:])
+    """Next-token LM loss: predict tokens[:, 1:] from tokens[:, :-1]. The
+    model applies its head per chunk inside its own forward
+    (``Llama.forward(targets=...)``), where FSDP2 has gathered a sharded
+    head; read from outside, the head would be this rank's shard."""
+    return model(tokens[:, :-1], targets=tokens[:, 1:])
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (a view: writes reach the DTensor);
+    a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _copies(g: DTensor) -> int:
+    """Ranks of the world that hold each element of ``g``: the world over
+    the product of the mesh dims that shard it."""
+    shards = 1
+    for dim, placement in enumerate(g.placements):
+        if placement.is_partial():
+            raise ValueError(f"gradient with a pending reduction {g.placements}")
+        if placement.is_shard():
+            shards *= g.device_mesh.size(dim)
+    return dist.get_world_size() // shards
+
+
+def global_norm(grads) -> torch.Tensor:
+    """fp32 L2 norm over every element of ``grads``. Sharded gradients
+    (DTensors; a sharded model has no other kind) count each element once
+    over the whole world: each rank's squared norm of its shard is divided
+    by the number of ranks that hold a copy of it, and one all-reduce sums
+    the ranks' shares."""
+    grads = list(grads)
+    norms = torch.stack([torch.linalg.vector_norm(_local(g), dtype=torch.float32)
+                         for g in grads])
+    if not isinstance(grads[0], DTensor):
+        return torch.linalg.vector_norm(norms)
+    copies = torch.tensor([_copies(g) for g in grads], dtype=torch.float32,
+                          device=norms.device)
+    total = (norms.square() / copies).sum()
+    dist.all_reduce(total)
+    return total.sqrt()
 
 
 @dataclass
@@ -115,18 +111,20 @@ class AdamW:
         return peak * 0.5 * (1.0 + math.cos(math.pi * done / span))
 
     def init(self, params) -> OptState:
+        """Moments shaped like each parameter's local shard."""
         return OptState(
             count=0,
-            mu=[torch.zeros_like(p) for p in params],
-            nu=[torch.zeros_like(p) for p in params],
+            mu=[torch.zeros_like(_local(p)) for p in params],
+            nu=[torch.zeros_like(_local(p)) for p in params],
         )
 
     @torch.no_grad()
     def update_(self, params, grads, state: OptState) -> OptState:
-        """One update, in place on ``params`` and the state's moments."""
-        params, grads = list(params), list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+        """One update, in place on ``params`` (their local shards, for
+        DTensors) and the state's moments."""
+        grads = list(grads)
+        norm = global_norm(grads)
+        params, grads = [_local(p) for p in params], [_local(g) for g in grads]
         # optax: t if norm < clip else (t / norm) * clip, with no epsilon.
         factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
         grads = torch._foreach_mul(grads, factor)
@@ -172,21 +170,47 @@ def init_train_state(model: nn.Module, optimizer: AdamW) -> TrainState:
     return TrainState(step=0, model=model, opt_state=optimizer.init(list(model.parameters())))
 
 
+def init_sharded_train_state(model: nn.Module, optimizer: AdamW, mesh, device,
+                             generator=None) -> TrainState:
+    """The train state born sharded (``init_sharded_train_state`` in the JAX
+    package): ``model``, built on the meta device, is sharded over ``mesh``
+    (``parallel/sharding.shard_model``), given storage for its shards only
+    on ``device`` (``to_empty``), and initialised by its ``init_weights``
+    from ``generator``, which leaves each shard as the unsharded model
+    would hold it. Nothing ever exists unsharded but one parameter at a
+    time while it is drawn."""
+    from ..parallel.sharding import shard_model
+
+    shard_model(model, mesh)
+    model.to_empty(device=device)
+    model.init_weights(generator)
+    return init_train_state(model, optimizer)
+
+
 def make_train_step(optimizer: AdamW, loss=loss_fn):
     """``step(state, batch) -> (state, loss)``: forward, backward and one
-    optimizer update. ``batch`` is a [b, s+1] token array (numpy or
-    tensor); it moves to the model's device."""
+    optimizer update. ``batch`` is this rank's [b, s+1] token array (numpy
+    or tensor); a host batch moves to the model's device, and a batch
+    already there (``data.DevicePrefetch``) is only cast to int64 in place
+    of a copy. On a sharded model the loss returned is the mean over all
+    ranks: the global batch's loss."""
 
     def step(state: TrainState, batch):
         model = state.model
         params = list(model.parameters())
-        device = params[0].device
+        device = _local(params[0]).device
         tokens = torch.as_tensor(batch).to(device=device, dtype=torch.long)
         for p in params:
             p.grad = None
         value = loss(model, tokens)
         value.backward()
         opt_state = optimizer.update_(params, [p.grad for p in params], state.opt_state)
-        return TrainState(state.step + 1, model, opt_state), value.detach()
+        value = value.detach()
+        if isinstance(params[0], DTensor):
+            # Ranks of one tensor-parallel group hold the same loss, so the
+            # world's mean is the data-parallel mean.
+            dist.all_reduce(value)
+            value = value / dist.get_world_size()
+        return TrainState(state.step + 1, model, opt_state), value
 
     return step
