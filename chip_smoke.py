@@ -47,9 +47,25 @@ Phases (any failure raises and the script exits non-zero):
       {"fsdp": 1}, the FSDP2-sharded llama-400m born sharded through the
       entry point for 4 steps from phase e's seed; its losses agree with
       phase e's, and its gradients of one backward with phase f's "dots"
-      ones, at phase f's tolerances.
+      ones, at phase f's tolerances;
+  (i) checkpoint and restore, llama-400m at full width and depth under
+      "dots" from phase g's seeded token file: U trains 4 steps with no
+      checkpoint; A trains 2 steps with --checkpoint-dir D and saves at its
+      end (the seconds save() blocked the loop, the persist seconds to the
+      durability edge and the bytes written); the storage restore that B
+      will make (llama_train's setup on D) lands on step 2; a shard server
+      over A's manager serves that step to restore_with_fallback into a
+      blanked state, once over the bundle wire ("peer") and once by
+      scatter-gather ("peer-sharded"), each byte-equal to the storage
+      restore (seconds and bytes of every rung); B, --steps 4 on D, resumes
+      from step 2 via storage and its 2 losses equal U's steps 2-3 (phase
+      f's tolerance) at phase e's launches per step; last, the torn-snapshot
+      check: a save at step 1 with its persist held, one more step enqueued
+      at once (AdamW updates in place), then the persisted bytes must equal
+      the state at the save (the device time of the snapshot's copies,
+      CUDA events).
 
-Phases e-h each reset the launch counters just before their runs and read
+Phases e-i each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
 per-kernel results (launches from phase e), and {"ok": true, "device":
 {...}}.
@@ -67,6 +83,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -492,6 +509,131 @@ def phase_h(build, peak, main_losses: list, main_grads: dict) -> dict:
     return out
 
 
+def bits_equal(got: dict, want: dict) -> bool:
+    """Every tensor of ``got`` bit-equal to ``want``'s of the same name."""
+    def raw(t):
+        return t.detach().reshape(-1).view(torch.uint8).cpu()
+
+    return got.keys() == want.keys() and all(torch.equal(raw(got[n]), raw(want[n]))
+                                             for n in want)
+
+
+def blank(state) -> None:
+    """Zero every tensor of a train state, its step and its count."""
+    from tf_operator_tpu_torch.runtime.shard_server import flatten_state
+
+    with torch.no_grad():
+        for t in flatten_state(state).values():
+            t.zero_()
+    state.step = state.opt_state.count = 0
+
+
+def torn_check(base: list, tmp: str) -> None:
+    """A save whose persist is held while the next step is enqueued at once:
+    the persisted bytes must be the state at the save."""
+    from tf_operator_tpu_torch.runtime.shard_server import decode_shard, flatten_state
+    from tf_operator_tpu_torch.train import llama_train
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+
+    gc.collect()
+    s = llama_train.setup(llama_train.parse_args([*base, "--steps", "4"]))
+    state, _ = s.step_fn(s.state, next(s.batches))
+    with CheckpointManager(os.path.join(tmp, "torn"), model_meta=s.config.geometry()) as mgr:
+        gate = threading.Event()
+        mgr._persist_gate = lambda _step: gate.wait(600)
+        try:
+            want = {n: t.clone() for n, t in flatten_state(state).items()}
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            t0 = time.perf_counter()
+            mgr.save(state)
+            blocked = time.perf_counter() - t0
+            end.record()
+            state, _ = s.step_fn(state, next(s.batches))  # in place, not waited for
+            torch.cuda.synchronize()
+            copy_ms = start.elapsed_time(end)
+            moved = sum(not torch.equal(t, want[n]) for n, t in flatten_state(state).items())
+        finally:
+            gate.set()  # close() drains the persist: never leave it held
+        mgr.wait()
+        manifest = mgr._read_delta_manifest(1)
+        persisted = {}
+        for name, entry in manifest["shards"].items():
+            with open(os.path.join(mgr._delta_shards_dir, f"{entry['checksum']}.npy"), "rb") as f:
+                persisted[name] = decode_shard(f.read(), want[name].dtype)
+        equal = bits_equal(persisted, want)
+    log(f"[i] torn-snapshot check: save() blocked {blocked:.4f} s, the snapshot's copies "
+        f"took {copy_ms:.3f} ms on the device; the next step changed {moved} of "
+        f"{len(want)} tensors; persisted step-1 bytes equal the state at the save: {equal}")
+    n = len(want)
+    del s, state, want, persisted
+    if not equal or moved < n // 2:
+        raise AssertionError("the persisted snapshot is not the state at the save")
+
+
+def phase_i(build, peak, main_args=MAIN_ARGS, tokens: int = 4_000_000, vocab: int = 32000) -> None:
+    """Checkpoint, resume and peer restore at full width and depth."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.runtime.shard_server import flatten_state, start_shard_server
+    from tf_operator_tpu_torch.train import data, llama_train
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.restore import restore_with_fallback
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        data.write_token_file(path, np.random.default_rng(0).integers(0, vocab, tokens)
+                              .astype(np.uint16))
+        base = [*main_args, "--data", path, "--data-dtype", "uint16"]
+        ckdir = os.path.join(tmp, "ckpt")
+        u = train_run(build, peak, "i", [*base, "--steps", "4"])
+        a = train_run(build, peak, "i", [*base, "--steps", "2", "--checkpoint-dir", ckdir])
+        mgr = a["ckpt"]
+        info = mgr.last_persist_info
+        log(f"[i] A: save() blocked the loop {a['save_seconds']} s; persist to the "
+            f"durability edge {mgr.last_persist_seconds:.3f} s; {info}")
+        if mgr.last_durable_step() != 2 or info["step"] != 2 or a["restore"].path != "none":
+            raise AssertionError(f"A: durable {mgr.last_durable_step()}, {info}, "
+                                 f"restore {a['restore']}")
+        stored = sum(e["bytes"] for e in mgr._read_delta_manifest(2)["shards"].values())
+
+        # The storage restore B makes: llama_train's setup on D.
+        gc.collect()
+        b_args = [*base, "--steps", "4", "--checkpoint-dir", ckdir]
+        sb = llama_train.setup(llama_train.parse_args(b_args))
+        sb.ckpt.close()
+        out = sb.restore
+        log(f"[i] storage: {(out.path, out.cause, out.step)} in {out.seconds:.3f} s, "
+            f"{stored} bytes")
+        if (out.path, out.cause, out.step) != ("storage", "ok", 2):
+            raise AssertionError(f"storage restore {out}")
+        ref = {n: t.clone() for n, t in flatten_state(sb.state).items()}
+        srv = start_shard_server(mgr)
+        empty = CheckpointManager(os.path.join(tmp, "empty"), model_meta=sb.config.geometry())
+        try:
+            for sharded, want in ((False, "peer"), (True, "peer-sharded")):
+                blank(sb.state)
+                out = restore_with_fallback(sb.state, empty, [srv.address], sharded=sharded)
+                equal = bits_equal(flatten_state(sb.state), ref)
+                log(f"[i] {want}: {(out.path, out.cause, out.step)} in {out.seconds:.3f} s, "
+                    f"{out.bytes_moved} bytes over the wire; byte-equal to storage: {equal}")
+                if (out.path, out.cause, out.step) != (want, "ok", 2) or not equal:
+                    raise AssertionError(f"{want} restore {out}, byte-equal {equal}")
+        finally:
+            srv.stop()
+        del sb, ref, mgr, a
+
+        b = train_run(build, peak, "i", b_args)
+        out = b["restore"]
+        if (out.path, out.cause, out.step, b["start_step"]) != ("storage", "ok", 2, 2):
+            raise AssertionError(f"B resumed {out}, from step {b['start_step']}")
+        check_losses("i", "B's steps 2-3 against U's", b["losses"], u["losses"][2:])
+        log(f"[i] B: save() blocked {b['save_seconds']} s; persist "
+            f"{b['ckpt'].last_persist_seconds:.3f} s; {b['ckpt'].last_persist_info}")
+        del b
+        torn_check(base, tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -524,6 +666,7 @@ def main() -> int:
     phase_g(build, peak)
     phase_h(build, peak, main["losses"], dots_grads)
     del dots_grads
+    phase_i(build, peak)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports with JAX and the JAX package blocked,
-imports none of them anywhere, builds nothing at import, and its entry
-points refuse to run on the CPU unasked."""
+"""The port stands alone: it imports with JAX, ``ml_dtypes``, orbax and the
+JAX package blocked, imports none of them anywhere, builds nothing at
+import, and its entry points refuse to run on the CPU unasked."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tf_operator_tpu_torch"
 CSRC = PORT / "ops" / "csrc"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "tf_operator_tpu"}
 MODULES = [
     "tf_operator_tpu_torch",
     "tf_operator_tpu_torch.device",
@@ -31,9 +31,12 @@ MODULES = [
     "tf_operator_tpu_torch.train.data",
     "tf_operator_tpu_torch.train.train_step",
     "tf_operator_tpu_torch.train.llama_train",
+    "tf_operator_tpu_torch.train.checkpoint",
+    "tf_operator_tpu_torch.train.restore",
     "tf_operator_tpu_torch.native.build",
     "tf_operator_tpu_torch.runtime.gpu_init",
     "tf_operator_tpu_torch.runtime.heartbeat",
+    "tf_operator_tpu_torch.runtime.shard_server",
     "tf_operator_tpu_torch.parallel.mesh",
     "tf_operator_tpu_torch.parallel.sharding",
     "tf_operator_tpu_torch.testing.rendezvous_workload",

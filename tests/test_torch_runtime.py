@@ -136,6 +136,40 @@ def test_heartbeat_through_the_cluster_seam():
     assert heartbeat.start_from_env(env={}) is None
 
 
+def test_recovery_riders_match_the_jax_package(tmp_path):
+    """The checkpoint, peer-address and restore riders: the same env names,
+    lease annotations and file-bridge keys as the JAX package's, and the
+    same compact restore rider."""
+    from tf_operator_tpu.runtime import heartbeat as jax_hb
+
+    for name in ("SHARD_SERVER", "PEER_RESTORE_ADDRS", "SHARDED_RESTORE", "WARM_START",
+                 "DELTA_PERSIST"):
+        assert getattr(heartbeat, "ENV_" + name) == getattr(jax_hb_env, "ENV_" + name)
+    riders = dict(step=7, tokens_per_sec=3.0, checkpoint_step=6, peer_addr="10.0.0.1:8470",
+                  restore="peer:ok:0.412:1024")
+    leases = []
+    for module in (heartbeat, jax_hb):
+        cluster = InMemoryCluster()
+        assert module.publish_heartbeat(cluster, "ns", "pod-hb", "pod", **riders)
+        leases.append(cluster.get_lease("ns", "pod-hb")["metadata"]["annotations"])
+    assert leases[0] == leases[1]
+    assert leases[0][constants.ANNOTATION_HEARTBEAT_CKPT] == "6"
+    heartbeat.write_heartbeat_file(str(tmp_path / "beat"), 3, **riders)
+    got = jax_hb.read_heartbeat_file(str(tmp_path / "beat"))
+    assert {k: got[k] for k in riders} == riders and got["seq"] == 3
+    seen = []
+    ours = heartbeat.HeartbeatPublisher(lambda *payload: seen.append(payload), 60)
+    theirs = jax_hb.HeartbeatPublisher(lambda *payload: seen.append(payload), 60)
+    for publisher in (ours, theirs):
+        publisher.record_progress(step=7, tokens_per_sec=3.0)
+        publisher.record_checkpoint(6)
+        publisher.record_peer_address("10.0.0.1:8470")
+        publisher.record_peer_address(None)  # clears nothing
+        publisher.record_restore("peer", "ok", 0.4123, 1024)
+        publisher.beat_once()
+    assert seen[0] == seen[1] == (1, 7, 3.0, 6, "10.0.0.1:8470", "peer:ok:0.412:1024")
+
+
 def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

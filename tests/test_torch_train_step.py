@@ -183,5 +183,9 @@ def test_llama_train_main_prints_step_lines(capsys):
 
 
 def test_llama_train_refuses_unported_flags():
+    # Every flag of the JAX script is ported now, the checkpoint flags
+    # with its cadence; a flag the port does not have is refused.
+    args = llama_train.parse_args(["--checkpoint-dir", "/tmp/x"])
+    assert (args.checkpoint_dir, args.checkpoint_every) == ("/tmp/x", 200)
     with pytest.raises(SystemExit):
-        llama_train.parse_args(["--checkpoint-dir", "/tmp/x"])
+        llama_train.parse_args(["--pipeline-stages", "2"])

@@ -7,7 +7,11 @@ reads the JAX workload's.
 A daemon thread started by ``gpu_init.initialize`` (before the rendezvous
 blocks) renews a per-pod heartbeat, and training loops call
 :func:`record_progress` at their log cadence to publish the step and the
-measured tokens/s. Sinks, most specific first:
+measured tokens/s. The recovery plane's riders ride the same beat:
+:func:`record_checkpoint` (a step is durable; called only from the
+checkpoint manager's durability listener), :func:`record_peer_address`
+(this rank's shard server) and :func:`record_restore` (which rung of the
+restore ladder won, and why). Sinks, most specific first:
 
 - ``TPU_HEARTBEAT_FILE``: the file bridge of the process e2e tier, one JSON
   object replaced wholesale each beat;
@@ -33,8 +37,21 @@ ENV_HEARTBEAT_LEASE = "TPU_HEARTBEAT_LEASE"
 ENV_HEARTBEAT_NAMESPACE = "TPU_HEARTBEAT_NAMESPACE"
 ENV_HEARTBEAT_INTERVAL = "TPU_HEARTBEAT_INTERVAL_SECONDS"
 ENV_HEARTBEAT_FILE = "TPU_HEARTBEAT_FILE"
+# The recovery plane's env, each absent unless the operator enables it:
+# start a shard server over the host snapshot and advertise it; the
+# comma-joined survivor addresses to restore from; plan a scatter-gather
+# across them; restore from live peers with no storage read (elastic
+# grow); persist only the shards that changed.
+ENV_SHARD_SERVER = "TPU_SHARD_SERVER"
+ENV_PEER_RESTORE_ADDRS = "TPU_PEER_RESTORE_ADDRS"
+ENV_SHARDED_RESTORE = "TPU_SHARDED_RESTORE"
+ENV_WARM_START = "TPU_WARM_START"
+ENV_DELTA_PERSIST = "TPU_DELTA_PERSIST"
 ANNOTATION_HEARTBEAT_STEP = "tpu.kubeflow.org/progress-step"
 ANNOTATION_HEARTBEAT_TPS = "tpu.kubeflow.org/tokens-per-sec"
+ANNOTATION_HEARTBEAT_CKPT = "tpu.kubeflow.org/checkpoint-step"
+ANNOTATION_HEARTBEAT_PEER = "tpu.kubeflow.org/peer-restore-addr"
+ANNOTATION_HEARTBEAT_RESTORE = "tpu.kubeflow.org/restore-outcome"
 
 
 def _format_microtime(epoch: float) -> str:
@@ -50,25 +67,37 @@ def _is(exc: BaseException, name: str) -> bool:
     return any(cls.__name__ == name for cls in type(exc).__mro__)
 
 
-def _progress_annotations(step: Optional[int],
-                          tokens_per_sec: Optional[float]) -> Dict[str, str]:
+def _progress_annotations(step: Optional[int], tokens_per_sec: Optional[float],
+                          checkpoint_step: Optional[int] = None,
+                          peer_addr: Optional[str] = None,
+                          restore: Optional[str] = None) -> Dict[str, str]:
     out: Dict[str, str] = {}
     if step is not None:
         out[ANNOTATION_HEARTBEAT_STEP] = str(step)
     if tokens_per_sec is not None:
         out[ANNOTATION_HEARTBEAT_TPS] = f"{float(tokens_per_sec):.1f}"
+    if checkpoint_step is not None:
+        out[ANNOTATION_HEARTBEAT_CKPT] = str(int(checkpoint_step))
+    if peer_addr is not None:
+        out[ANNOTATION_HEARTBEAT_PEER] = str(peer_addr)
+    if restore is not None:
+        out[ANNOTATION_HEARTBEAT_RESTORE] = str(restore)
     return out
 
 
 def publish_heartbeat(cluster, namespace: str, name: str, identity: str,
                       step: Optional[int] = None,
                       tokens_per_sec: Optional[float] = None,
+                      checkpoint_step: Optional[int] = None,
+                      peer_addr: Optional[str] = None,
+                      restore: Optional[str] = None,
                       clock=time.time) -> bool:
     """One renewal through the Cluster seam. True iff the beat landed; False
     on a lost optimistic-concurrency round or an API error (the next tick
     retries: the operator's staleness clock spans several intervals)."""
     now = clock()
-    annotations = _progress_annotations(step, tokens_per_sec)
+    annotations = _progress_annotations(step, tokens_per_sec, checkpoint_step, peer_addr,
+                                        restore)
     try:
         lease = cluster.get_lease(namespace, name)
     except Exception as exc:  # noqa: BLE001 — a beat never raises
@@ -110,7 +139,10 @@ def publish_heartbeat(cluster, namespace: str, name: str, identity: str,
 
 
 def write_heartbeat_file(path: str, seq: int, step: Optional[int],
-                         tokens_per_sec: Optional[float] = None) -> None:
+                         tokens_per_sec: Optional[float] = None,
+                         checkpoint_step: Optional[int] = None,
+                         peer_addr: Optional[str] = None,
+                         restore: Optional[str] = None) -> None:
     """The file half of the process-tier bridge: one JSON object, replaced
     wholesale each beat (write to a temporary file, then rename, so that the
     reader never sees a torn write). ``seq`` strictly increases."""
@@ -118,22 +150,31 @@ def write_heartbeat_file(path: str, seq: int, step: Optional[int],
     payload = {"seq": seq, "step": step, "ts": time.time()}
     if tokens_per_sec is not None:
         payload["tokens_per_sec"] = float(tokens_per_sec)
+    if checkpoint_step is not None:
+        payload["checkpoint_step"] = int(checkpoint_step)
+    if peer_addr is not None:
+        payload["peer_addr"] = str(peer_addr)
+    if restore is not None:
+        payload["restore"] = str(restore)
     with open(tmp, "w") as fh:
         json.dump(payload, fh)
     os.replace(tmp, path)
 
 
 class HeartbeatPublisher:
-    """Daemon renewal loop around one sink ``(seq, step, tokens_per_sec)``.
-    ``record_progress`` updates the payload and wakes the loop, so that a
-    long sleep never delays the proof of the step that just completed."""
+    """Daemon renewal loop around one sink ``(seq, step, tokens_per_sec,
+    checkpoint_step, peer_addr, restore)``. Each ``record_*`` call updates
+    the payload and wakes the loop, so that a long sleep never delays the
+    proof of the step that just completed."""
 
-    def __init__(self, sink: Callable[[int, Optional[int], Optional[float]], None],
-                 interval: float):
+    def __init__(self, sink: Callable[..., None], interval: float):
         self._sink = sink
         self.interval = max(0.05, float(interval))
         self._step: Optional[int] = None
         self._tokens_per_sec: Optional[float] = None
+        self._checkpoint_step: Optional[int] = None
+        self._peer_addr: Optional[str] = None
+        self._restore: Optional[str] = None
         self._seq = 0
         self._wake = threading.Event()
         self._stopped = threading.Event()
@@ -154,12 +195,36 @@ class HeartbeatPublisher:
             self._tokens_per_sec = float(tokens_per_sec)
         self._wake.set()
 
+    def record_checkpoint(self, step: int) -> None:
+        """``step`` is DURABLE: the checkpoint-step annotation, which the
+        autoscaler's checkpoint-gated shrink waits on."""
+        self._checkpoint_step = int(step)
+        self._wake.set()
+
+    def record_peer_address(self, addr: Optional[str]) -> None:
+        """This rank's shard-server ``host:port``: the peer-restore
+        annotation. None clears nothing."""
+        if addr is not None:
+            self._peer_addr = str(addr)
+        self._wake.set()
+
+    def record_restore(self, path: str, cause: str, seconds: float,
+                       bytes_moved: Optional[int] = None) -> None:
+        """The restore ladder's outcome, as the compact
+        ``path:cause:seconds[:bytes]`` annotation."""
+        rider = f"{path}:{cause}:{float(seconds):.3f}"
+        if bytes_moved is not None:
+            rider += f":{int(bytes_moved)}"
+        self._restore = rider
+        self._wake.set()
+
     def beat_once(self) -> None:
         """One synchronous beat (also the loop body). Never raises: a broken
         sink must not take the training process down with it."""
         self._seq += 1
         try:
-            self._sink(self._seq, self._step, self._tokens_per_sec)
+            self._sink(self._seq, self._step, self._tokens_per_sec, self._checkpoint_step,
+                       self._peer_addr, self._restore)
         except Exception:  # noqa: BLE001 — liveness must never kill training
             log.debug("heartbeat sink failed", exc_info=True)
 
@@ -200,12 +265,17 @@ def start_from_env(cluster=None,
         identity = env.get("HOSTNAME") or lease
         file_path = env.get(ENV_HEARTBEAT_FILE)
         if file_path:
-            def sink(seq, step, tokens_per_sec=None, _path=file_path):
-                write_heartbeat_file(_path, seq, step, tokens_per_sec)
+            def sink(seq, step, tokens_per_sec, checkpoint_step, peer_addr, restore,
+                     _path=file_path):
+                write_heartbeat_file(_path, seq, step, tokens_per_sec, checkpoint_step,
+                                     peer_addr, restore)
         elif cluster is not None:
-            def sink(seq, step, tokens_per_sec=None, _c=cluster):
+            def sink(seq, step, tokens_per_sec, checkpoint_step, peer_addr, restore,
+                     _c=cluster):
                 publish_heartbeat(_c, namespace, lease, identity, step=step,
-                                  tokens_per_sec=tokens_per_sec)
+                                  tokens_per_sec=tokens_per_sec,
+                                  checkpoint_step=checkpoint_step, peer_addr=peer_addr,
+                                  restore=restore)
         else:
             return None
         _active = HeartbeatPublisher(sink, interval).start()
@@ -220,6 +290,33 @@ def record_progress(step: Optional[int] = None,
     publisher = _active
     if publisher is not None:
         publisher.record_progress(step, tokens_per_sec=tokens_per_sec)
+
+
+def record_checkpoint(step: int) -> None:
+    """Training-loop API: a checkpoint for ``step`` is durable. Register it
+    as the checkpoint manager's durability listener; never call it after
+    ``save()`` returns. A no-op without an active publisher."""
+    publisher = _active
+    if publisher is not None:
+        publisher.record_checkpoint(step)
+
+
+def record_peer_address(addr: Optional[str]) -> None:
+    """Training-loop API: this rank serves peer-restore shards at ``addr``
+    ("host:port"). A no-op without an active publisher."""
+    publisher = _active
+    if publisher is not None:
+        publisher.record_peer_address(addr)
+
+
+def record_restore(path: str, cause: str, seconds: float,
+                   bytes_moved: Optional[int] = None) -> None:
+    """Training-loop API: this rank restored via ``path`` for ``cause`` in
+    ``seconds``, moving ``bytes_moved`` wire bytes where the peer path
+    metered them. A no-op without an active publisher."""
+    publisher = _active
+    if publisher is not None:
+        publisher.record_restore(path, cause, seconds, bytes_moved)
 
 
 def stop() -> None:

@@ -4,7 +4,7 @@
         [--steps 100] [--batch 32] [--seq 2048] [--lr 3e-4] [--warmup 100]
         [--log-every 10]
         [--data TOKENS --data-dtype int32|uint16] [--remat-policy dots]
-        [--device cuda|cpu]
+        [--checkpoint-dir DIR --checkpoint-every 200] [--device cuda|cpu]
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 absent. The default model is llama-400m on CUDA and llama-tiny on the CPU.
@@ -20,8 +20,20 @@ file through the native loader, and reach the card through
 ``DevicePrefetch``. Prints the JAX script's ``[llama] process i/n
 devices=N mesh={...}`` and ``[llama] step N loss X tokens/sec Y (Z/chip)``
 lines, and publishes the step and tokens/s on the heartbeat at the log
-cadence. Checkpointing is not ported yet: ``--checkpoint-dir`` (or
-``CHECKPOINT_DIR``) is refused.
+cadence.
+
+With ``--checkpoint-dir`` (or ``CHECKPOINT_DIR``) the run checkpoints
+through ``train/checkpoint.py`` every ``--checkpoint-every`` steps and at
+its end, and first restores through the ladder of ``train/restore.py``
+(peers from ``TPU_PEER_RESTORE_ADDRS``, then storage), printing ``[llama]
+resumed from step N via <path> (<cause>)``; the operator's env turns on a
+shard server (``TPU_SHARD_SERVER``), scatter-gather (``TPU_SHARDED_
+RESTORE``), warm start (``TPU_WARM_START``) and delta persists
+(``TPU_DELTA_PERSIST``). A resumed run skips the token-file windows
+already trained on (synthetic batches start again, as in the JAX
+script), so a run that is killed and started again with the same
+arguments trains as one uninterrupted run would. The durable step, the
+shard server's address and the restore outcome ride the heartbeat.
 """
 
 from __future__ import annotations
@@ -42,8 +54,11 @@ from ..models import llama
 from ..parallel.mesh import mesh_axes
 from ..parallel.sharding import data_coords
 from ..runtime import gpu_init
+from ..runtime import heartbeat
 from ..runtime.heartbeat import record_progress
+from .checkpoint import CheckpointManager
 from .data import DevicePrefetch, SyntheticTokens, TokenFileDataset
+from .restore import RestoreOutcome, restore_with_fallback
 from .train_step import (
     init_sharded_train_state,
     init_train_state,
@@ -69,12 +84,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--remat-policy", default=None,
                         help="the model's remat policy (default: the config's, 'dots')")
     parser.add_argument("--checkpoint-dir", default=os.environ.get("CHECKPOINT_DIR", ""))
+    parser.add_argument("--checkpoint-every", type=int, default=200)
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
-    if args.checkpoint_dir:
-        parser.error("--checkpoint-dir: checkpoint and restore are not ported yet "
-                     "(ROADMAP Queue 1 item 4)")
-    return args
+    return parser.parse_args(argv)
 
 
 def check_vocab(path: str, dtype: str, vocab_size: int, model: str) -> None:
@@ -103,6 +115,54 @@ class Setup:
     topology: gpu_init.Topology
     mesh: Optional[object]
     local_batch: int
+    ckpt: Optional[CheckpointManager] = None
+    shard_srv: Optional[object] = None
+    restore: Optional[RestoreOutcome] = None
+
+
+_TRUTHY = ("1", "true", "yes")
+
+
+def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
+    """The checkpoint manager of ``args.checkpoint_dir``, the restore of
+    ``state`` in place through the ladder, and the shard server when the
+    operator asked for one: ``(ckpt, shard_srv, outcome)``."""
+    ckpt_dir = args.checkpoint_dir
+    if topo.slice_world and topo.num_slices > 1:
+        # Slice-local worlds are independent training replicas: each
+        # slice owns its own checkpoint stream.
+        ckpt_dir = os.path.join(ckpt_dir, f"slice-{topo.slice_index}")
+    delta_persist = os.environ.get(heartbeat.ENV_DELTA_PERSIST) in _TRUTHY
+    ckpt = CheckpointManager(ckpt_dir, model_meta=config.geometry(),
+                             delta_persist=delta_persist)
+    # DURABILITY ORDERING: record_checkpoint fires ONLY from the persist
+    # worker after the finalize, never after save() returns: save() proves
+    # the snapshot only, and a step published while its persist is in
+    # flight lets the operator's checkpoint-gated shrink take workers away
+    # against a checkpoint that a crash can still erase.
+    ckpt.add_durability_listener(heartbeat.record_checkpoint)
+    peers = [a for a in os.environ.get(heartbeat.ENV_PEER_RESTORE_ADDRS, "").split(",") if a]
+    outcome = restore_with_fallback(
+        state, ckpt, peers,
+        sharded=os.environ.get(heartbeat.ENV_SHARDED_RESTORE) in _TRUTHY,
+        warm_start=os.environ.get(heartbeat.ENV_WARM_START) in _TRUTHY,
+        have=delta_persist,
+    )
+    heartbeat.record_restore(outcome.path, outcome.cause, outcome.seconds,
+                             outcome.bytes_moved)
+    if outcome.step is not None:
+        print(f"[llama] resumed from step {outcome.step} via {outcome.path} "
+              f"({outcome.cause})", flush=True)
+    shard_srv = None
+    if os.environ.get(heartbeat.ENV_SHARD_SERVER) in _TRUTHY:
+        from ..runtime.shard_server import start_shard_server
+
+        sliced = topo.num_slices > 1
+        shard_srv = start_shard_server(
+            ckpt, slice_index=topo.slice_index if sliced else None,
+            num_slices=topo.num_slices if sliced else None)
+        heartbeat.record_peer_address(shard_srv.address)
+    return ckpt, shard_srv, outcome
 
 
 def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
@@ -142,21 +202,45 @@ def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
     else:
         state = init_sharded_train_state(llama.Llama(config, device="meta"), optimizer,
                                          mesh, device, generator)
+    ckpt = shard_srv = outcome = None
+    if args.checkpoint_dir:
+        # The restore runs BEFORE the dataset is built: skip_windows reads
+        # the restored step, or a resumed run would train on the early
+        # windows twice.
+        ckpt, shard_srv, outcome = recover(args, state, topo, config)
     if args.data:
         dataset = TokenFileDataset(args.data, local_batch, args.seq, dtype=args.data_dtype,
                                    process_id=data_rank, num_processes=data_size,
                                    skip_windows=state.step * local_batch)
     else:
+        # Synthetic batches do not skip on resume, as in the JAX script: a
+        # resumed run starts their stream again.
         dataset = SyntheticTokens(local_batch, args.seq, config.vocab_size, seed=data_rank)
     return Setup(config, state, make_train_step(optimizer),
-                 DevicePrefetch(dataset, device, depth=2), dataset, topo, mesh, local_batch)
+                 DevicePrefetch(dataset, device, depth=2), dataset, topo, mesh, local_batch,
+                 ckpt, shard_srv, outcome)
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Train ``args.steps`` steps; returns the losses (the global batch's)
-    and the wall time of each step (each step ends in a device
-    synchronise)."""
+    """Train from the restored step (0 on a fresh run) to ``args.steps``;
+    returns the losses (the global batch's), the wall time of each step
+    (each step ends in a device synchronise) and, with a checkpoint
+    directory, the restore outcome, the seconds each save blocked the
+    loop, and the (closed) checkpoint manager, whose host snapshot stays
+    servable."""
     s = setup(args)
+    try:
+        return _train(args, s)
+    finally:
+        # Drain the persist queue on EVERY exit path: a completing or
+        # failing run must never leave a write in flight.
+        if s.ckpt is not None:
+            s.ckpt.close()
+        if s.shard_srv is not None:
+            s.shard_srv.stop()
+
+
+def _train(args: argparse.Namespace, s: Setup) -> dict:
     world = dist.get_world_size() if dist.is_initialized() else 1
     device = torch.device(s.batches.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -167,7 +251,7 @@ def run(args: argparse.Namespace) -> dict:
           f"devices={world} mesh={mesh}{slice_note} device={device} ({name}) "
           f"model={args.model} params={s.config.param_count():,} "
           f"remat_policy={s.config.remat_policy}", flush=True)
-    losses, seconds = [], []
+    losses, seconds, save_seconds = [], [], []
     state = s.state
     t0 = time.perf_counter()
     for step in range(state.step, args.steps):
@@ -182,10 +266,21 @@ def run(args: argparse.Namespace) -> dict:
                   f"tokens/sec {tps:,.0f} ({tps / world:,.0f}/chip)", flush=True)
             # Log cadence, not per step: each call wakes the heartbeat thread.
             record_progress(step=step, tokens_per_sec=tps)
+        if s.ckpt is not None and (step + 1) % args.checkpoint_every == 0:
+            # The snapshot only; the persist runs in the background and the
+            # durability listener publishes the step once it is finalized.
+            t_save = time.perf_counter()
+            s.ckpt.save(state)
+            save_seconds.append(time.perf_counter() - t_save)
+    if s.ckpt is not None:
+        t_save = time.perf_counter()
+        if s.ckpt.save(state, force=True):
+            save_seconds.append(time.perf_counter() - t_save)
     print("[llama] done", flush=True)
     return {"config": s.config, "losses": losses, "step_seconds": seconds,
             "tokens_per_step": args.batch * args.seq, "device": name, "mesh": mesh,
-            "native_loader": getattr(s.dataset, "native", None)}
+            "native_loader": getattr(s.dataset, "native", None), "restore": s.restore,
+            "save_seconds": save_seconds, "ckpt": s.ckpt, "start_step": s.state.step}
 
 
 def main(argv=None) -> int:
