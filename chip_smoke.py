@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
       (ops/flash.py flash_work, ops/rope.py rope_work) and share of it
       and, for the forward, the time of torch's
       scaled_dot_product_attention as a yardstick (timed here only; the
-      port never calls it); for rope also its time by events without a
+      port never calls it), and for dQ and dK/dV together the time of its
+      backward alone (a saved forward, torch.autograd.grad), beside the
+      sum of the two kernels; for rope also its time by events without a
       graph, the host cost of a wrapper call, and a copy of x both ways;
   (d) full-width parity: a 2-layer model at llama-400m width from one set
       of seeded weights, bs 1, seq 2048: loss and per-parameter gradient
@@ -31,7 +33,9 @@ Phases (any failure raises and the script exits non-zero):
       kernels' launch counters and the peak device memory reset just
       before and read just after; launches per step must be rope 144,
       flash_fwd 24, flash_dq 24 and flash_dkv 24 (the flash forward is
-      saved, not replayed); tokens/s and MFU;
+      saved, not replayed); step time, tokens/s and MFU from the entry
+      point's window (the host reads the loss at the first and the last
+      step only, so the steps between queue ahead of the card);
   (f) remat policies: the same run under "nothing", "dots" and
       "dots+rope": step time, peak memory and launches per step of each
       (flash_fwd 48 under "nothing", rope 96 under "dots+rope"); all 4
@@ -63,7 +67,21 @@ Phases (any failure raises and the script exits non-zero):
       check: a save at step 1 with its persist held, one more step enqueued
       at once (AdamW updates in place), then the persisted bytes must equal
       the state at the save (the device time of the snapshot's copies,
-      CUDA events).
+      CUDA events);
+  (j) the flagship as a pod runs it: ``python -m tf_operator_tpu_torch.
+      train.llama_train`` as a subprocess, llama-400m at full width and
+      depth from phase g's seeded token file, 32 steps, a checkpoint every
+      3, under a one-replica JAXJob pod's env (JAX_NUM_PROCESSES=1,
+      JAX_PROCESS_ID=0, the heartbeat lease and file bridge at 1 s,
+      TPU_DELTA_PERSIST=1, TPU_PROFILE_DIR with a window of steps 1-2);
+      SIGKILLed once the heartbeat file shows a durable checkpoint_step
+      (and the window's trace is written), which must come before the
+      loop's last step, then started again with the
+      same command: it exits 0, resumes via storage, its losses on the
+      steps both runs printed agree (phase f's tolerance), the heartbeat
+      file ends on the last step, its tokens/s, the final checkpoint step
+      and the storage restore, and the first run's chrome trace holds
+      CUDA kernel events of all four hand-written kernels.
 
 Phases e-i each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
@@ -75,9 +93,12 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
+import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -113,8 +134,14 @@ PARITY_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 # replay or the sharding got wrong differs by far more.
 LOSS_TOL = 1e-3
 GRAD_TOL = 1e-2
-MAIN_ARGS = ["--model", "llama-400m", "--batch", "8", "--seq", "2048", "--log-every", "1",
+# --log-every past the last step: the host reads the loss at the first and
+# the last step only, the window's two ends.
+MAIN_ARGS = ["--model", "llama-400m", "--batch", "8", "--seq", "2048", "--log-every", "100",
              "--warmup", "1"]
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The names the hand-written kernels carry in ptxas's report and in a trace.
+KERNEL_SYMBOLS = {"rope": "rope_kernel", "flash_fwd": "flash_fwd_kernel",
+                  "flash_dq": "flash_dq_kernel", "flash_dkv": "flash_dkv_kernel"}
 SOURCES = {
     "rope": ("tf_operator_tpu_torch/ops/csrc/rope.cu", "tf_operator_tpu/ops/rope_pallas.py:54"),
     "flash_fwd": ("tf_operator_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -279,6 +306,15 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
                 f"bound (plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
                 f"{res['bound_by']}, library {res['library_ms']}) bytes {nbytes} flops {flops}")
             results[name] = res
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+        ours = results["flash_dq"]["ms"] + results["flash_dkv"]["ms"]
+        log(f"[c] yardstick: scaled_dot_product_attention's backward alone (dQ, dK and dV "
+            f"in one call, its forward saved) {bwd_ms:.4f} ms; flash_dq + flash_dkv "
+            f"{ours:.4f} ms, {ours / bwd_ms:.3f}x its time")
+        del qt, kt, vt, ot
         rope = work["rope"][0]
         log(f"[c] rope by events over back-to-back calls {time_ms(rope):.4f} ms; host cost "
             f"of a rope_cuda call {host_ms(rope):.4f} ms; yardstick, a copy of x (the same "
@@ -341,7 +377,9 @@ def expected_launches(policy: str, layers: int) -> dict:
 def train_run(build, peak, phase: str, argv: list) -> dict:
     """One llama_train run with the launch counters and the peak device
     memory reset just before it and read just after; prints and returns
-    losses, step times, tokens/s, MFU, peak memory and launches."""
+    losses, the step time of its window (from the host's read of the first
+    step's loss to its read of the last's), tokens/s, MFU, peak memory and
+    launches."""
     from tf_operator_tpu_torch.train import llama_train
 
     gc.collect()
@@ -352,16 +390,19 @@ def train_run(build, peak, phase: str, argv: list) -> dict:
     out = llama_train.run(args)
     out["launches"] = dict(build.LAUNCHES)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    steps, timed = len(out["step_seconds"]), out["step_seconds"][1:]
-    out["step_s"] = sum(timed) / len(timed)
+    steps = len(out["losses"])
+    if out["window_steps"] < 1:
+        raise AssertionError(f"a window of {out['window_steps']} steps times nothing")
+    out["step_s"] = out["window_seconds"] / out["window_steps"]
     out["tokens_per_s"] = out["tokens_per_step"] / out["step_s"]
     out["mfu"] = (out["tokens_per_s"] * out["config"].flops_per_token(args.seq)
                   / (peak.bf16_tflops * 1e12))
     out["per_step"] = {k: n / steps for k, n in out["launches"].items()}
     policy = out["config"].remat_policy
     log(f"[{phase}] remat_policy {policy}: losses {out['losses']}")
-    log(f"[{phase}] remat_policy {policy}: step seconds {out['step_seconds']} (first is "
-        f"warm-up); mean timed step {out['step_s']:.4f} s, tokens/s "
+    log(f"[{phase}] remat_policy {policy}: window of {out['window_steps']} steps in "
+        f"{out['window_seconds']:.4f} s (the first step, the warm-up, outside); step "
+        f"{out['step_s']:.4f} s, tokens/s "
         f"{out['tokens_per_s']:.1f}, MFU {out['mfu']:.4f} (peak {peak.bf16_tflops} "
         f"TFLOP/s); peak device memory {out['peak_gib']:.3f} GiB")
     log(f"[{phase}] remat_policy {policy}: launches in {steps} steps {out['launches']}, "
@@ -448,16 +489,24 @@ def phase_f(build, peak) -> dict:
     return dots
 
 
-def phase_g(build, peak):
-    """Token-file data through the native loader and the device prefetch."""
+def seeded_tokens(directory: str, tokens: int = 4_000_000, vocab: int = 32000) -> str:
+    """A uint16 token file of ``tokens`` ids below ``vocab`` from seed 0."""
     import numpy as np
 
+    from tf_operator_tpu_torch.train import data
+
+    path = os.path.join(directory, "tokens.bin")
+    data.write_token_file(path, np.random.default_rng(0).integers(0, vocab, tokens)
+                          .astype(np.uint16))
+    return path
+
+
+def phase_g(build, peak):
+    """Token-file data through the native loader and the device prefetch."""
     from tf_operator_tpu_torch.train import data, llama_train
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "tokens.bin")
-        rng = np.random.default_rng(0)
-        data.write_token_file(path, rng.integers(0, 32000, 4_000_000).astype(np.uint16))
+        path = seeded_tokens(tmp)
         native = data.TokenFileDataset(path, 8, 2048, dtype="uint16")
         plain = data.TokenFileDataset(path, 8, 2048, dtype="uint16", force_python=True)
         same = all(next(native).tobytes() == next(plain).tobytes() for _ in range(3))
@@ -571,19 +620,15 @@ def torn_check(base: list, tmp: str) -> None:
         raise AssertionError("the persisted snapshot is not the state at the save")
 
 
-def phase_i(build, peak, main_args=MAIN_ARGS, tokens: int = 4_000_000, vocab: int = 32000) -> None:
+def phase_i(build, peak, main_args=MAIN_ARGS) -> None:
     """Checkpoint, resume and peer restore at full width and depth."""
-    import numpy as np
-
     from tf_operator_tpu_torch.runtime.shard_server import flatten_state, start_shard_server
-    from tf_operator_tpu_torch.train import data, llama_train
+    from tf_operator_tpu_torch.train import llama_train
     from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
     from tf_operator_tpu_torch.train.restore import restore_with_fallback
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "tokens.bin")
-        data.write_token_file(path, np.random.default_rng(0).integers(0, vocab, tokens)
-                              .astype(np.uint16))
+        path = seeded_tokens(tmp)
         base = [*main_args, "--data", path, "--data-dtype", "uint16"]
         ckdir = os.path.join(tmp, "ckpt")
         u = train_run(build, peak, "i", [*base, "--steps", "4"])
@@ -634,6 +679,110 @@ def phase_i(build, peak, main_args=MAIN_ARGS, tokens: int = 4_000_000, vocab: in
         torn_check(base, tmp)
 
 
+STEP_LINE = re.compile(r"^\[llama\] step (\d+) loss (\S+) tokens/sec ([\d,]+)", re.M)
+
+
+def read_json(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def phase_j(steps: int = 32, timeout: float = 600.0) -> None:
+    """The flagship as a pod runs it: SIGKILLed at the durable edge while it
+    still trains, started again, resumed via storage; its heartbeat and its
+    profiler trace. ``steps`` is enough that the first persist is durable
+    before the loop ends: each save blocks the loop for its snapshot only."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = seeded_tokens(tmp)
+        beat, prof = os.path.join(tmp, "beat.json"), os.path.join(tmp, "profile")
+        argv = [sys.executable, "-m", "tf_operator_tpu_torch.train.llama_train", *MAIN_ARGS,
+                "--log-every", "1", "--steps", str(steps), "--checkpoint-every", "3",
+                "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--data", path,
+                "--data-dtype", "uint16"]
+        env = {**os.environ, "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0",
+               "TPU_HEARTBEAT_LEASE": "smoke-worker-0-hb", "TPU_HEARTBEAT_FILE": beat,
+               "TPU_HEARTBEAT_INTERVAL_SECONDS": "1", "TPU_DELTA_PERSIST": "1",
+               "TPU_PROFILE_DIR": prof, "TPU_PROFILE_START_STEP": "1",
+               "TPU_PROFILE_NUM_STEPS": "2"}
+
+        def traces():
+            return sorted(glob.glob(os.path.join(prof, "*.pt.trace.json")))
+
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "first.log"), "w") as out:
+            first = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out,
+                                     stderr=subprocess.STDOUT, text=True)
+            try:
+                durable = None
+                while first.poll() is None and time.perf_counter() - t0 < timeout:
+                    durable = (read_json(beat) or {}).get("checkpoint_step")
+                    if durable is not None and traces():
+                        break
+                    time.sleep(0.01)
+                first.send_signal(signal.SIGKILL)
+                first.wait(60)
+            finally:
+                if first.poll() is None:
+                    first.kill()
+        killed_at = time.perf_counter() - t0
+        with open(os.path.join(tmp, "first.log")) as f:
+            first_log = f.read()
+        lines = STEP_LINE.findall(first_log)
+        before = {int(k): float(loss) for k, loss, _ in lines}
+        # Step k's line carries (k + 1) steps' tokens over the seconds since
+        # the loop began: the seconds to each step's end, the window's
+        # closing step (3, which writes the trace) included.
+        ends = {int(k): round((int(k) + 1) * 8 * 2048 / float(tps.replace(",", "")), 3)
+                for k, _, tps in lines}
+        log(f"[j] first run: SIGKILLed {killed_at:.1f} s after its start, once the heartbeat "
+            f"file showed checkpoint_step {durable}; it had printed steps {sorted(before)}; "
+            f"exit {first.returncode}; seconds from the loop's start to each step's end {ends}")
+        if first.returncode != -signal.SIGKILL or durable is None or max(before) >= steps - 1:
+            raise AssertionError(f"the first run was not killed at a durable step while it "
+                                 f"trained (exit {first.returncode}, checkpoint_step {durable}, "
+                                 f"last step printed {max(before)}):\n{first_log[-3000:]}")
+        t1 = time.perf_counter()
+        second = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                                timeout=timeout)
+        log(f"[j] second run: exit {second.returncode} in {time.perf_counter() - t1:.1f} s")
+        if second.returncode != 0:
+            raise AssertionError(f"the second run failed:\n{second.stdout[-3000:]}"
+                                 f"{second.stderr[-3000:]}")
+        resumed = re.search(r"\[llama\] resumed from step (\d+) via storage \(ok\)",
+                            second.stdout)
+        log(f"[j] {resumed[0] if resumed else 'no resume line'}")
+        if not resumed or not durable <= int(resumed[1]) <= max(before) + 1:
+            raise AssertionError(f"the second run did not resume from storage at or after "
+                                 f"step {durable}:\n{second.stdout[-3000:]}")
+        after = {int(k): float(loss) for k, loss, _ in STEP_LINE.findall(second.stdout)}
+        both = sorted(set(before) & set(after))
+        if sorted(after) != list(range(int(resumed[1]), steps)) or not both:
+            raise AssertionError(f"steps {sorted(after)} after a resume from {resumed[1]}; "
+                                 f"both runs printed {both}")
+        check_losses("j", f"second run against the first on steps {both}",
+                     [after[k] for k in both], [before[k] for k in both])
+        final = read_json(beat) or {}
+        log(f"[j] heartbeat file at the end: {final}")
+        if (final.get("step") != steps - 1 or not final.get("tokens_per_sec")
+                or final.get("checkpoint_step") != steps
+                or not str(final.get("restore", "")).startswith("storage:ok:")):
+            raise AssertionError(f"the heartbeat file ended on {final}")
+        (trace,) = traces()
+        events = read_json(trace)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        seen = {name: sum(sym in k for k in kernels) for name, sym in KERNEL_SYMBOLS.items()}
+        log(f"[j] trace {os.path.basename(trace)} ({os.path.getsize(trace)} bytes, "
+            f"{len(events)} events, {len(kernels)} CUDA kernel events); launches of the "
+            f"hand-written kernels in it {seen}")
+        if not all(seen.values()):
+            raise AssertionError(f"the trace misses a hand-written kernel: {seen}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -667,6 +816,7 @@ def main() -> int:
     phase_h(build, peak, main["losses"], dots_grads)
     del dots_grads
     phase_i(build, peak)
+    phase_j()
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -7,9 +7,12 @@ Runs the port's entry point (``python -m
 tf_operator_tpu_torch.train.llama_train``) from each checkout in turn, one
 process a run, ``--pairs`` times each, after building each checkout's
 kernels; the side that runs first alternates from pair to pair. Each run
-logs every step's cumulative tokens/s, from which the wall time of each
-step follows; the first step (allocator and library warm-up) is left out,
-and a run's figure is the tokens/s of the steps after it. Prints every run, then each side's median and quartiles,
+logs only its first and its last step (``--log-every`` the step count),
+so that no step between waits for the card on a log line; each line
+carries the cumulative tokens/s since the loop began, from which the time
+to the end of that step follows, and a run's figure is the tokens/s of
+the window between the two lines: the first step (allocator and library
+warm-up) is left out. Prints every run, then each side's median and quartiles,
 the pairs the change won, and whether the difference is resolved: the
 change wins at least nine tenths of the pairs and the medians differ by
 more than the distance between the parent's quartiles. The last line is
@@ -31,21 +34,22 @@ STEP = re.compile(r"^\[llama\] step (\d+) loss (\S+) tokens/sec ([\d,]+)", re.M)
 def run_once(tree: str, args: argparse.Namespace) -> dict:
     cmd = [sys.executable, "-m", "tf_operator_tpu_torch.train.llama_train",
            "--model", args.model, "--batch", str(args.batch), "--seq", str(args.seq),
-           "--steps", str(args.steps), "--log-every", "1"]
+           "--steps", str(args.steps), "--log-every", str(args.steps)]
     out = subprocess.run(cmd, cwd=tree, capture_output=True, text=True, timeout=900)
     if out.returncode:
         raise RuntimeError(f"{tree}: exit {out.returncode}\n{out.stdout}{out.stderr}")
     tokens = args.batch * args.seq
+    lines = STEP.findall(out.stdout)
+    if [int(k) for k, _, _ in lines] != [0, args.steps - 1]:
+        raise RuntimeError(f"{tree}: step lines {lines}, expected steps 0 and "
+                           f"{args.steps - 1}\n{out.stdout}")
     # Step k's cumulative tokens/s is (k + 1) * tokens over the time since
-    # the first step began.
-    ends = [(int(k) + 1) * tokens / float(tps.replace(",", ""))
-            for k, _, tps in STEP.findall(out.stdout)]
-    losses = [float(loss) for _, loss, _ in STEP.findall(out.stdout)]
-    if len(ends) != args.steps:
-        raise RuntimeError(f"{tree}: {len(ends)} step lines of {args.steps}\n{out.stdout}")
-    steps = [b - a for a, b in zip(ends, ends[1:])]
-    return {"tokens_per_s": tokens * len(steps) / sum(steps), "step_s": steps,
-            "losses": losses}
+    # the loop began, so (k + 1) * tokens / tps is the time to its end.
+    first, last = ((int(k) + 1) * tokens / float(tps.replace(",", "")) for k, _, tps in lines)
+    window = last - first
+    return {"tokens_per_s": tokens * (args.steps - 1) / window,
+            "step_s": window / (args.steps - 1),
+            "losses": [float(loss) for _, loss, _ in lines]}
 
 
 def quartiles(xs: list[float]) -> tuple[float, float, float]:
@@ -73,8 +77,8 @@ def main(argv=None) -> int:
         for side in order:
             r = run_once(getattr(args, side), args)
             runs[side].append(r)
-            print(f"pair {i} {side}: {r['tokens_per_s']:.1f} tokens/s, steps "
-                  f"{[round(s, 4) for s in r['step_s']]}, losses {r['losses']}", flush=True)
+            print(f"pair {i} {side}: {r['tokens_per_s']:.1f} tokens/s, step "
+                  f"{r['step_s']:.4f} s, first and last losses {r['losses']}", flush=True)
 
     tps = {side: [r["tokens_per_s"] for r in rs] for side, rs in runs.items()}
     wins = sum(c > p for p, c in zip(tps["parent"], tps["change"]))

@@ -37,15 +37,19 @@ MODULES = [
     "tf_operator_tpu_torch.runtime.gpu_init",
     "tf_operator_tpu_torch.runtime.heartbeat",
     "tf_operator_tpu_torch.runtime.shard_server",
+    "tf_operator_tpu_torch.runtime.profiling",
+    "tf_operator_tpu_torch.cluster.kube",
     "tf_operator_tpu_torch.parallel.mesh",
     "tf_operator_tpu_torch.parallel.sharding",
     "tf_operator_tpu_torch.testing.rendezvous_workload",
+    "tf_operator_tpu_torch.testing.parity_workload",
     "chip_smoke",
 ]
 
 
 def run_python(code, cwd=ROOT, timeout=120):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -128,6 +132,7 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
     assert '"ok": true' not in proc.stdout
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout

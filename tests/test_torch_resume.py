@@ -38,6 +38,8 @@ import pytest
 from tf_operator_tpu_torch.train import data, llama_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# Subprocesses run beside the suite's other workers: one OpenMP thread each.
+CHILD_ENV = {**os.environ, "OMP_NUM_THREADS": "1"}
 ARGS = ["--device", "cpu", "--model", "llama-tiny", "--batch", "4", "--seq", "32",
         "--log-every", "1", "--lr", "3e-3", "--warmup", "6"]
 STEP_LINE = re.compile(r"^\[llama\] step (\d+) loss (\S+) ", re.M)
@@ -112,9 +114,9 @@ def test_sigkill_then_rerun_resumes_from_the_durable_step(tokens, tmp_path):
             "--checkpoint-every", "2"]
     ckpt = ["--checkpoint-dir", str(tmp_path / "c")]
     beat = tmp_path / "beat.json"
-    env = {**os.environ, "TPU_HEARTBEAT_LEASE": "w-0-hb", "TPU_HEARTBEAT_FILE": str(beat),
+    env = {**CHILD_ENV, "TPU_HEARTBEAT_LEASE": "w-0-hb", "TPU_HEARTBEAT_FILE": str(beat),
            "TPU_HEARTBEAT_INTERVAL_SECONDS": "0.05"}
-    reference = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+    reference = subprocess.Popen(argv, cwd=ROOT, env=CHILD_ENV, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
     victim = subprocess.Popen([*argv, *ckpt], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -138,8 +140,8 @@ def test_sigkill_then_rerun_resumes_from_the_durable_step(tokens, tmp_path):
     assert sorted(ref) == list(range(40))
     done = max(step_losses(killed))
     assert done < 39, "the run ended before the kill"
-    rerun = subprocess.run([*argv, *ckpt], cwd=ROOT, capture_output=True, text=True,
-                           timeout=240)
+    rerun = subprocess.run([*argv, *ckpt], cwd=ROOT, env=CHILD_ENV, capture_output=True,
+                           text=True, timeout=240)
     assert rerun.returncode == 0, rerun.stderr
     resumed = int(re.search(r"resumed from step (\d+) via storage \(ok\)", rerun.stdout)[1])
     # The newest durable step: at least the one the rider published, and
@@ -188,7 +190,7 @@ def test_fsdp2_saves_and_restores_through_dcp(tokens, tmp_path):
     procs = []
     try:
         for rank in range(2):
-            env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+            env = {**CHILD_ENV, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
                    "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank),
                    "JAX_MESH_SPEC": '{"fsdp": 2}'}
             procs.append(subprocess.Popen(

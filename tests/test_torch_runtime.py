@@ -192,7 +192,8 @@ def test_two_process_rendezvous_from_the_operator_env(tmp_path):
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "tf_operator_tpu_torch.testing.rendezvous_workload",
                  "--device", "cpu", "--timeout", "60"],
-                cwd=ROOT, env={**os.environ, **env}, stdout=subprocess.PIPE,
+                cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1", **env},
+                stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
             beats.append(beat)
             if index == 0:

@@ -148,7 +148,8 @@ def runs(tmp_path_factory):
             for env in pair:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", WORKER, str(tmp / name), *args], cwd=ROOT,
-                    env={**os.environ, **env}, stdout=subprocess.PIPE,
+                    env={**os.environ, "OMP_NUM_THREADS": "1", **env},
+                    stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True))
         previous = llama.CONFIGS["llama-tiny"]
         llama.CONFIGS["llama-tiny"] = FP32_TINY

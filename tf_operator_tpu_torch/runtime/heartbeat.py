@@ -17,7 +17,10 @@ restore ladder won, and why). Sinks, most specific first:
   object replaced wholesale each beat;
 - an explicit ``cluster``: Lease renewals through the Cluster seam
   (``get_lease``/``create_lease``/``update_lease``), full-object
-  optimistic-concurrency writes.
+  optimistic-concurrency writes;
+- in a pod (``KUBERNETES_SERVICE_HOST``): the same renewals through the
+  port's own Lease client, ``cluster/kube.py``, with the pod's service
+  account.
 
 Absent env means no thread at all: a dev-box run is unchanged.
 """
@@ -176,6 +179,7 @@ class HeartbeatPublisher:
         self._peer_addr: Optional[str] = None
         self._restore: Optional[str] = None
         self._seq = 0
+        self._beat = threading.Lock()  # the loop's beat and a flush never interleave
         self._wake = threading.Event()
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -221,12 +225,13 @@ class HeartbeatPublisher:
     def beat_once(self) -> None:
         """One synchronous beat (also the loop body). Never raises: a broken
         sink must not take the training process down with it."""
-        self._seq += 1
-        try:
-            self._sink(self._seq, self._step, self._tokens_per_sec, self._checkpoint_step,
-                       self._peer_addr, self._restore)
-        except Exception:  # noqa: BLE001 — liveness must never kill training
-            log.debug("heartbeat sink failed", exc_info=True)
+        with self._beat:
+            self._seq += 1
+            try:
+                self._sink(self._seq, self._step, self._tokens_per_sec,
+                           self._checkpoint_step, self._peer_addr, self._restore)
+            except Exception:  # noqa: BLE001 — liveness must never kill training
+                log.debug("heartbeat sink failed", exc_info=True)
 
     def stop(self) -> None:
         self._stopped.set()
@@ -247,8 +252,11 @@ def start_from_env(cluster=None,
                    env: Optional[Dict[str, str]] = None) -> Optional[HeartbeatPublisher]:
     """Start (once) the heartbeat thread the injected env describes; the
     active publisher, or None when the env opts out or names no sink.
-    In-cluster Lease renewals (``KUBERNETES_SERVICE_HOST``) need the port's
-    own cluster client, which comes with ROADMAP Queue 1 item 9."""
+    Sinks in the JAX package's order: the file bridge, then an explicit
+    ``cluster``, then in a pod (``KUBERNETES_SERVICE_HOST``) the port's
+    Lease client on the service account, else none. A client that cannot
+    be set up logs at debug level and starts nothing: a run outside a
+    cluster trains all the same."""
     global _active
     env = os.environ if env is None else env
     lease = env.get(ENV_HEARTBEAT_LEASE)
@@ -269,15 +277,24 @@ def start_from_env(cluster=None,
                      _path=file_path):
                 write_heartbeat_file(_path, seq, step, tokens_per_sec, checkpoint_step,
                                      peer_addr, restore)
-        elif cluster is not None:
+        else:
+            if cluster is None and "KUBERNETES_SERVICE_HOST" in env:
+                try:
+                    from ..cluster.kube import KubeCluster
+
+                    cluster = KubeCluster(env=env)
+                except Exception:  # noqa: BLE001 — no credentials: no beat
+                    log.debug("in-cluster heartbeat setup failed", exc_info=True)
+                    return None
+            if cluster is None:
+                return None
+
             def sink(seq, step, tokens_per_sec, checkpoint_step, peer_addr, restore,
                      _c=cluster):
                 publish_heartbeat(_c, namespace, lease, identity, step=step,
                                   tokens_per_sec=tokens_per_sec,
                                   checkpoint_step=checkpoint_step, peer_addr=peer_addr,
                                   restore=restore)
-        else:
-            return None
         _active = HeartbeatPublisher(sink, interval).start()
         return _active
 
@@ -317,6 +334,15 @@ def record_restore(path: str, cause: str, seconds: float,
     publisher = _active
     if publisher is not None:
         publisher.record_restore(path, cause, seconds, bytes_moved)
+
+
+def flush() -> None:
+    """One synchronous beat of what was recorded last, for a run about to
+    exit: the renewal thread is a daemon and may not get to it. A no-op
+    without an active publisher."""
+    publisher = _active
+    if publisher is not None:
+        publisher.beat_once()
 
 
 def stop() -> None:

@@ -7,7 +7,8 @@
         [--checkpoint-dir DIR --checkpoint-every 200] [--device cuda|cpu]
 
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-absent. The default model is llama-400m on CUDA and llama-tiny on the CPU.
+absent. The default model is sized to the world (:func:`default_model`):
+llama2-7b from 4 cards, llama-400m below that, llama-tiny on the CPU.
 
 One process per card. ``gpu_init`` rendezvouses from the operator-injected
 env (the JAXJob ``JAX_*`` contract, or a PyTorchJob's c10d env) and builds
@@ -20,7 +21,11 @@ file through the native loader, and reach the card through
 ``DevicePrefetch``. Prints the JAX script's ``[llama] process i/n
 devices=N mesh={...}`` and ``[llama] step N loss X tokens/sec Y (Z/chip)``
 lines, and publishes the step and tokens/s on the heartbeat at the log
-cadence.
+cadence. Each step's loss stays on the device: the host reads it only at
+a log step (the run's first, every ``--log-every``-th and its last), so
+the steps between queue ahead of the card as the JAX script's do, and
+once at the end for the whole list. ``step_profiler`` runs after every
+step: ``TPU_PROFILE_DIR`` traces a window of steps (runtime/profiling.py).
 
 With ``--checkpoint-dir`` (or ``CHECKPOINT_DIR``) the run checkpoints
 through ``train/checkpoint.py`` every ``--checkpoint-every`` steps and at
@@ -56,6 +61,7 @@ from ..parallel.sharding import data_coords
 from ..runtime import gpu_init
 from ..runtime import heartbeat
 from ..runtime.heartbeat import record_progress
+from ..runtime.profiling import step_profiler
 from .checkpoint import CheckpointManager
 from .data import DevicePrefetch, SyntheticTokens, TokenFileDataset
 from .restore import RestoreOutcome, restore_with_fallback
@@ -70,7 +76,7 @@ from .train_step import (
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="llama_train")
     parser.add_argument("--model", default=None,
-                        help="default: llama-400m on CUDA, llama-tiny on the CPU")
+                        help="default: sized to the world (default_model)")
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=32, help="global batch size")
     parser.add_argument("--seq", type=int, default=2048)
@@ -101,6 +107,32 @@ def check_vocab(path: str, dtype: str, vocab_size: int, model: str) -> None:
             f"--data token ids span [{lo}, {hi}] but {model} has vocab_size="
             f"{vocab_size}; the embedding gather would fail on them: pick a "
             "matching --model/config")
+
+
+# The least world that trains llama2-7b at the default --batch 32, seq 2048
+# and remat policy: the least N at which one card's reckoned peak is at
+# most half of an 80 GB card (85.0e9 bytes), the other half left to what
+# the reckoning does not see (NCCL buffers, fragmentation). The peak is
+# the update's: 14 bytes a parameter (bf16 weight, AdamW moments and
+# gradient, and the update's bf16 clipped gradient, step and denominator),
+# all sharded N ways by FSDP. The blocks save only their inputs for the
+# backward, so activations are small beside it. scripts/train_memory.py
+# fits the port's own peaks on an H100 80GB HBM3 (2-6 layers of llama2-7b
+# at batch 4 and 8) as 2.789e9 bytes a layer, 0.0110e9 a layer and
+# sequence, 0.2604e9 a sequence outside the layers and 2.696e9 besides;
+# with two gathered layers (1.62e9) that gives one card 111.5e9 bytes on
+# 1 card, 57.4e9 on 2, 29.5e9 on 4 and 15.6e9 on 8.
+LLAMA2_7B_MIN_WORLD = 4
+
+
+def default_model(device_type: str, world: int) -> str:
+    """The model a run picks when ``--model`` is not given, as the JAX
+    script sizes it to the hardware: llama2-7b on a world of at least
+    ``LLAMA2_7B_MIN_WORLD`` cards, llama-400m on fewer, llama-tiny on the
+    CPU."""
+    if device_type != "cuda":
+        return "llama-tiny"
+    return "llama2-7b" if world >= LLAMA2_7B_MIN_WORLD else "llama-400m"
 
 
 @dataclasses.dataclass
@@ -170,8 +202,10 @@ def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
     The model is drawn from a generator seeded with ``seed`` on the run's
     device; a sharded model holds the same weights as an unsharded one."""
     device = resolve_device(args.device)
+    topo = gpu_init.initialize(device=device)
     if args.model is None:
-        args.model = "llama-400m" if device.type == "cuda" else "llama-tiny"
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        args.model = default_model(device.type, world)
     config = llama.CONFIGS[args.model]
     if device.type == "cpu":
         args.seq = min(args.seq, config.max_seq_len)
@@ -183,7 +217,6 @@ def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
     if args.data:
         check_vocab(args.data, args.data_dtype, config.vocab_size, args.model)
 
-    topo = gpu_init.initialize(device=device)
     mesh = gpu_init.global_mesh(topo, device) if dist.is_initialized() else None
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -223,11 +256,13 @@ def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
 
 def run(args: argparse.Namespace) -> dict:
     """Train from the restored step (0 on a fresh run) to ``args.steps``;
-    returns the losses (the global batch's), the wall time of each step
-    (each step ends in a device synchronise) and, with a checkpoint
-    directory, the restore outcome, the seconds each save blocked the
-    loop, and the (closed) checkpoint manager, whose host snapshot stays
-    servable."""
+    returns the losses (the global batch's, one float a step), the timed
+    window (``window_steps`` steps in ``window_seconds``, from the host's
+    read of the first step's loss to its read of the last's, so that the
+    first step, which warms the allocator and the libraries up, stays
+    outside) and, with a checkpoint directory, the restore outcome, the
+    seconds each save blocked the loop, and the (closed) checkpoint
+    manager, whose host snapshot stays servable."""
     s = setup(args)
     try:
         return _train(args, s)
@@ -238,6 +273,9 @@ def run(args: argparse.Namespace) -> dict:
             s.ckpt.close()
         if s.shard_srv is not None:
             s.shard_srv.stop()
+        # One last beat: the renewal thread is a daemon, and the final
+        # durable step must be published before the process exits.
+        heartbeat.flush()
 
 
 def _train(args: argparse.Namespace, s: Setup) -> dict:
@@ -251,18 +289,24 @@ def _train(args: argparse.Namespace, s: Setup) -> dict:
           f"devices={world} mesh={mesh}{slice_note} device={device} ({name}) "
           f"model={args.model} params={s.config.param_count():,} "
           f"remat_policy={s.config.remat_policy}", flush=True)
-    losses, seconds, save_seconds = [], [], []
+    save_seconds = []
     state = s.state
+    start, last = state.step, args.steps - 1
+    # One buffer for the run's losses, allocated once: each step's loss is
+    # copied in on the device, so nothing waits and nothing grows per step.
+    losses = torch.empty(max(args.steps - start, 0), dtype=torch.float32, device=device)
+    window = None  # (step, host clock) of the first read
     t0 = time.perf_counter()
-    for step in range(state.step, args.steps):
-        t_step = time.perf_counter()
+    for step in range(start, args.steps):
         state, loss = s.step_fn(state, next(s.batches))
-        losses.append(float(loss))  # waits for the device
-        seconds.append(time.perf_counter() - t_step)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            dt = time.perf_counter() - t0
-            tps = len(losses) * args.batch * args.seq / max(dt, 1e-9)
-            print(f"[llama] step {step} loss {losses[-1]:.4f} "
+        losses[step - start].copy_(loss.detach())
+        step_profiler(step)
+        if step == start or step % args.log_every == 0 or step == last:
+            value = float(loss)  # the host read: waits for the device
+            now = time.perf_counter()
+            window = window or (step, now)
+            tps = (step - start + 1) * args.batch * args.seq / max(now - t0, 1e-9)
+            print(f"[llama] step {step} loss {value:.4f} "
                   f"tokens/sec {tps:,.0f} ({tps / world:,.0f}/chip)", flush=True)
             # Log cadence, not per step: each call wakes the heartbeat thread.
             record_progress(step=step, tokens_per_sec=tps)
@@ -272,12 +316,15 @@ def _train(args: argparse.Namespace, s: Setup) -> dict:
             t_save = time.perf_counter()
             s.ckpt.save(state)
             save_seconds.append(time.perf_counter() - t_save)
+    window_steps, window_seconds = (last - window[0], now - window[1]) if window else (0, 0.0)
     if s.ckpt is not None:
         t_save = time.perf_counter()
         if s.ckpt.save(state, force=True):
             save_seconds.append(time.perf_counter() - t_save)
+    losses = losses.tolist()
     print("[llama] done", flush=True)
-    return {"config": s.config, "losses": losses, "step_seconds": seconds,
+    return {"config": s.config, "losses": losses, "window_steps": window_steps,
+            "window_seconds": window_seconds,
             "tokens_per_step": args.batch * args.seq, "device": name, "mesh": mesh,
             "native_loader": getattr(s.dataset, "native", None), "restore": s.restore,
             "save_seconds": save_seconds, "ckpt": s.ckpt, "start_step": s.state.step}
