@@ -81,12 +81,29 @@ Phases (any failure raises and the script exits non-zero):
       steps both runs printed agree (phase f's tolerance), the heartbeat
       file ends on the last step, its tokens/s, the final checkpoint step
       and the storage restore, and the first run's chrome trace holds
-      CUDA kernel events of all four hand-written kernels.
+      CUDA kernel events of all four hand-written kernels;
+  (k) the MoE family: moe-125m (12 layers, dim 768, 6 heads x 128, 8
+      experts, top-2, groups of 256, capacity 80 a group) at full width
+      and depth through the entry point under its config's remat policy
+      "dots+rope+norms", bs 8, seq 2048: 8 steps with the einsum routing
+      (every loss finite, the first within 0.5 of ln(vocab) plus the first
+      batch's summed aux loss, launches per step rope 48 and 12 of each
+      flash kernel; step time, tokens/s, MFU, peak memory), 3 steps with
+      the gather routing (its step time; its losses those of the einsum
+      run), and 3 steps FSDP2-sharded on a one-rank NCCL group (the fp32
+      router in a group of its own; the same losses); at 2 layers, full
+      width, one step's loss and gradients of the two routings (phase f's
+      tolerances) and the card (kernels, bf16) against the CPU (plain,
+      fp32) at phase d's tolerances, MOE_ROUTED_TOL for the expert and
+      router gradient norms, with the share of routes that picked another
+      expert; the dispatch and combine einsums of one layer timed; phase
+      c's checks and timings at moe-125m's shapes [8, 2048, 6, 128].
 
-Phases e-i each reset the launch counters just before their runs and read
+Phases e-k each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
-per-kernel results (launches from phase e), and {"ok": true, "device":
-{...}}.
+per-kernel results (launches from phase e, and from phase k's einsum run
+for the entries named "...[moe-125m]", timed at its shapes), and {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -215,19 +232,19 @@ def rel_max_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def check(name: str, case: str, got, ref, tol: float) -> float:
+def check(name: str, case: str, got, ref, tol: float, label: str = "c") -> float:
     err, rel = rel_max_err(got, ref)
     ok = math.isfinite(rel) and rel <= tol
-    log(f"[c] {case:12s} {name:4s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}) "
+    log(f"[{label}] {case:12s} {name:4s} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain version ({case})")
     return err
 
 
-def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
+def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda", main="main", label="c"):
     """Each kernel against its plain version; returns per-kernel results at
-    the main shapes."""
+    the shapes of the case named ``main``. Lines carry ``[label]``."""
     from tf_operator_tpu_torch.models.llama import rope_table
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -245,24 +262,24 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
 
         err = {}
         err["rope"] = check("rope", case, rope_mod.rope_cuda(q, cos, sin),
-                            rope_mod.rope_plain(q, cos, sin), TOL["rope"])
+                            rope_mod.rope_plain(q, cos, sin), TOL["rope"], label)
         err["rope_bwd"] = check("rope", case + "-bwd", rope_mod.rope_cuda(do, cos, sin, True),
-                                rope_mod.rope_plain(do, cos, sin, True), TOL["rope"])
+                                rope_mod.rope_plain(do, cos, sin, True), TOL["rope"], label)
         causal = c["causal"]
         o, lse = flash.flash_forward_cuda(q, k, v, causal)
         po, plse = flash.flash_forward_plain(q, k, v, causal)
-        err["o"] = check("o", case, o, po, TOL["o"])
-        err["lse"] = check("lse", case, lse, plse, TOL["lse"])
+        err["o"] = check("o", case, o, po, TOL["o"], label)
+        err["lse"] = check("lse", case, lse, plse, TOL["lse"], label)
         for tag, cot in (("", None), ("+dlse", dlse)):
             delta = flash.flash_delta(do, o, cot)
             dq = flash.flash_dq_cuda(q, k, v, do, lse, delta, causal)
             pdq = flash.flash_dq_plain(q, k, v, do, lse, delta, causal)
             dk, dv = flash.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
             pdk, pdv = flash.flash_dkv_plain(q, k, v, do, lse, delta, causal)
-            err["dq" + tag] = check("dq", case + tag, dq, pdq, TOL["dq"])
-            err["dk" + tag] = check("dk", case + tag, dk, pdk, TOL["dk"])
-            err["dv" + tag] = check("dv", case + tag, dv, pdv, TOL["dv"])
-        if case != "main":
+            err["dq" + tag] = check("dq", case + tag, dq, pdq, TOL["dq"], label)
+            err["dk" + tag] = check("dk", case + tag, dk, pdk, TOL["dk"], label)
+            err["dv" + tag] = check("dv", case + tag, dv, pdv, TOL["dv"], label)
+        if case != main:
             continue
 
         delta = flash.flash_delta(do, o)
@@ -302,7 +319,7 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
                 "library_ms": time_ms(lib) if lib is not None else None,
             }
-            log(f"[c] {name}: {res['ms']:.4f} ms, {res['bound_ms'] / res['ms']:.3f} of its "
+            log(f"[{label}] {name}: {res['ms']:.4f} ms, {res['bound_ms'] / res['ms']:.3f} of its "
                 f"bound (plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms by "
                 f"{res['bound_by']}, library {res['library_ms']}) bytes {nbytes} flops {flops}")
             results[name] = res
@@ -311,12 +328,12 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda"):
         dot = do.transpose(1, 2)
         bwd_ms = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
         ours = results["flash_dq"]["ms"] + results["flash_dkv"]["ms"]
-        log(f"[c] yardstick: scaled_dot_product_attention's backward alone (dQ, dK and dV "
+        log(f"[{label}] yardstick: scaled_dot_product_attention's backward alone (dQ, dK and dV "
             f"in one call, its forward saved) {bwd_ms:.4f} ms; flash_dq + flash_dkv "
             f"{ours:.4f} ms, {ours / bwd_ms:.3f}x its time")
         del qt, kt, vt, ot
         rope = work["rope"][0]
-        log(f"[c] rope by events over back-to-back calls {time_ms(rope):.4f} ms; host cost "
+        log(f"[{label}] rope by events over back-to-back calls {time_ms(rope):.4f} ms; host cost "
             f"of a rope_cuda call {host_ms(rope):.4f} ms; yardstick, a copy of x (the same "
             f"bytes less the tables) {time_ms(lambda: q.clone(), graph=True):.4f} ms in a "
             f"graph, {time_ms(lambda: q.clone()):.4f} ms by events")
@@ -679,6 +696,203 @@ def phase_i(build, peak, main_args=MAIN_ARGS) -> None:
         torn_check(base, tmp)
 
 
+# Phase (k): moe-125m (the JAX bench's MoE secondary) at full width and
+# depth, its config's remat policy "dots+rope+norms", groups of 256.
+MOE_ARGS = ["--model", "moe-125m", "--batch", "8", "--seq", "2048", "--log-every", "100",
+            "--warmup", "1"]
+MOE_SHAPE = dict(b=8, s=2048, h=6, kvh=6, d=128, causal=True)
+# Card (bf16) against CPU (fp32) for the expert weights and the router:
+# bf16 rounds the router's input, which flips the top-2 choice of the
+# routes whose 2nd and 3rd scores are near-tied, and moves those tokens'
+# gradient from one expert to another (and the capacity race after them).
+# Twice PARITY_TOL's gradient-norm bound; the share of flipped routes is
+# printed beside it.
+MOE_ROUTED_TOL = 1e-1
+
+
+def moe_config(**changes):
+    from tf_operator_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.CONFIGS["moe-125m"], max_seq_len=2048, **changes)
+
+
+def moe_grads(cfg, tokens, device="cuda", routes=None, state=None):
+    """(loss, {name: gradient}) of one forward and backward of a model of
+    ``cfg`` on ``device``, drawn from seed 0 there or given ``state``; with
+    ``routes``, a dict that receives each layer's top-k expert ids of its
+    first forward."""
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.train.train_step import loss_fn
+
+    gc.collect()
+    model = llama.Llama(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    if routes is not None:
+        for i, layer in enumerate(model.layers):
+            def keep(module, args, out, i=i):
+                routes.setdefault(i, torch.topk(out, cfg.experts_per_token)[1].cpu())
+            layer.feed_forward.router.register_forward_hook(keep)
+    loss = loss_fn(model, tokens.to(device))
+    loss.backward()
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    return loss.item(), grads
+
+
+def moe_parity(tokens) -> None:
+    """Two layers at full width: the card (kernels, bf16) against the CPU
+    (plain versions, fp32), from the same weights."""
+    from tf_operator_tpu_torch.models import llama
+
+    cfg = moe_config(n_layers=2)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    state = llama.Llama(cpu_cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0)).state_dict()
+    card_routes, cpu_routes = {}, {}
+    t0 = time.perf_counter()
+    card_loss, card = moe_grads(cfg, tokens, "cuda", card_routes, state)
+    t1 = time.perf_counter()
+    cpu_loss, cpu = moe_grads(cpu_cfg, tokens, "cpu", cpu_routes, state)
+    t2 = time.perf_counter()
+    flipped = [(card_routes[i] != cpu_routes[i]).float().mean().item() for i in cpu_routes]
+    rel_loss = rel(card_loss, cpu_loss)
+    log(f"[k] parity at 2 layers: loss card {card_loss:.6f} cpu {cpu_loss:.6f}, rel "
+        f"{rel_loss:.3e} (tol {PARITY_TOL['loss']}); share of (token, rank) routes whose "
+        f"expert differs per layer {flipped} (card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
+    if not rel_loss <= PARITY_TOL["loss"]:
+        raise AssertionError(f"moe loss differs by {rel_loss:.3e} relative")
+    worst = {}
+    for name, g in card.items():
+        routed = ".router." in name or ".experts_" in name
+        r = rel(g.float().norm().item(), cpu[name].norm().item())
+        if r >= worst.get(routed, (0.0, ""))[0]:
+            worst[routed] = (r, name)
+    (dense, dense_name), (routed, routed_name) = worst[False], worst[True]
+    log(f"[k] parity at 2 layers: worst grad-norm rel {dense:.3e} at {dense_name} (tol "
+        f"{PARITY_TOL['grad_norm']}); experts and router {routed:.3e} at {routed_name} "
+        f"(tol {MOE_ROUTED_TOL})")
+    if not dense <= PARITY_TOL["grad_norm"] or not routed <= MOE_ROUTED_TOL:
+        raise AssertionError(f"moe gradient norms differ: {worst}")
+
+
+def routing_ms(x, cfg) -> tuple[float, float]:
+    """(forward, forward and backward) ms of one MoE layer's dispatch and
+    combine einsums at ``x``'s shape, on routes from a seeded router and
+    experts left out (their output is their input)."""
+    b, s, d = x.shape
+    group = cfg.moe_group_size
+    xg = x.reshape(b * s // group, group, d)
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = int(cfg.capacity_factor * group * k / e)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    probs = torch.softmax(torch.randn(*xg.shape[:2], e, device="cuda", generator=gen), -1)
+    gate, idx = torch.topk(probs, k)
+    onehot = torch.nn.functional.one_hot(idx, e)
+    taken, combine = 0, 0
+    for j in range(k):
+        oh = onehot[:, :, j]
+        pos = oh.cumsum(1) - oh + taken
+        keep = ((pos < cap) & (oh > 0)).to(x.dtype) * gate[:, :, j, None].to(x.dtype)
+        combine = combine + keep[..., None] * (
+            pos.clamp(max=cap - 1)[..., None] == torch.arange(cap, device="cuda")).to(x.dtype)
+        taken = taken + oh.sum(1, keepdim=True)
+    dispatch = (combine > 0).to(x.dtype)
+    combine = combine.detach().requires_grad_()
+    xg = xg.detach().requires_grad_()
+
+    def forward():
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, xg)
+        return torch.einsum("bsec,ebcd->bsd", combine, expert_in)
+
+    dy = torch.randn_like(xg)
+    fwd = time_ms(forward)
+    both = time_ms(lambda: torch.autograd.grad(forward(), (xg, combine), dy))
+    return fwd, both
+
+
+def phase_k(build, peak, flash, rope_mod) -> dict:
+    """moe-125m on the card: the entry point at full width and depth (einsum
+    routing 8 steps, gather routing 3), einsum against gather and card
+    against CPU at 2 layers, one-rank FSDP2, and the kernels at its shapes.
+    Returns the kernels' results at moe-125m's shapes with the launches of
+    its main run."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.train import llama_train
+    from tf_operator_tpu_torch.train.data import SyntheticTokens
+
+    # The first batch's load-balancing losses, from the run's own setup.
+    gc.collect()
+    s = llama_train.setup(llama_train.parse_args([*MOE_ARGS, "--steps", "8"]))
+    model = s.state.model
+    router = model.layers[0].feed_forward.router.weight
+    tokens = torch.as_tensor(next(s.dataset)).to(device=s.batches.device, dtype=torch.long)
+    with torch.no_grad():
+        aux0 = model(tokens[:, :-1], return_hidden=True, return_aux=True)[1].item()
+    log(f"[k] moe-125m: {s.config.param_count():,} parameters, "
+        f"{s.config.active_param_count():,} active; router {router.dtype}, experts "
+        f"{model.layers[0].feed_forward.experts_w1.dtype}; the first batch's summed aux "
+        f"loss {aux0:.6f}")
+    if router.dtype != torch.float32:
+        raise AssertionError(f"router in {router.dtype}")
+    del s, model, router, tokens
+
+    main = train_run(build, peak, "k", [*MOE_ARGS, "--steps", "8"])
+    want = math.log(main["config"].vocab_size) + aux0
+    if abs(main["losses"][0] - want) > 0.5:
+        raise AssertionError(f"first loss {main['losses'][0]} is far from ln(vocab) + aux {want}")
+
+    einsum_cfg = llama.CONFIGS["moe-125m"]
+    llama.CONFIGS["moe-125m"] = dataclasses.replace(einsum_cfg, moe_impl="gather")
+    try:
+        gather = train_run(build, peak, "k", [*MOE_ARGS, "--steps", "3"])
+    finally:
+        llama.CONFIGS["moe-125m"] = einsum_cfg
+    log(f"[k] einsum against gather routing, 12 layers: step {main['step_s']:.4f} s against "
+        f"{gather['step_s']:.4f} s ({gather['step_s'] / main['step_s']:.3f}x), peak "
+        f"{main['peak_gib']:.3f} against {gather['peak_gib']:.3f} GiB")
+    check_losses("k", "gather against einsum, 12 layers", gather["losses"], main["losses"][:3])
+
+    batch = torch.from_numpy(next(SyntheticTokens(8, 2048, 32000, seed=1))).long()
+    loss_e, grads_e = moe_grads(moe_config(n_layers=2), batch)
+    loss_g, grads_g = moe_grads(moe_config(n_layers=2, moe_impl="gather"), batch)
+    check_losses("k", "gather against einsum, 2 layers", [loss_g], [loss_e])
+    check_grads("k", "gather against einsum, 2 layers", grads_g, grads_e)
+    del grads_e, grads_g
+    moe_parity(batch[:1])
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    os.environ["JAX_MESH_SPEC"] = '{"fsdp": 1}'
+    try:
+        sharded = train_run(build, peak, "k", [*MOE_ARGS, "--steps", "3"])
+    finally:
+        del os.environ["JAX_MESH_SPEC"]
+        dist.destroy_process_group()
+    check_losses("k", "one-rank FSDP2 (router in its own group) against unsharded",
+                 sharded["losses"], main["losses"][:3])
+
+    x = torch.randn(8, 2048, 768, device="cuda").to(torch.bfloat16)
+    fwd, both = routing_ms(x, main["config"])
+    per_step = main["config"].n_layers * (fwd + both)
+    log(f"[k] dispatch + combine einsums of one layer at [8, 2048, 768], groups of 256, "
+        f"cap 80: forward {fwd:.4f} ms, forward and backward {both:.4f} ms; a step runs "
+        f"forward, replay and backward in each of 12 layers: {per_step:.3f} ms")
+
+    results = phase_c(flash, rope_mod, peak, {"moe_125m": MOE_SHAPE}, main="moe_125m",
+                      label="k")
+    for name, res in results.items():
+        res["name"] = f"{name}[moe-125m]"
+        res["launches"] = main["launches"][name]
+        res["launches_per_step"] = main["per_step"][name]
+    return results
+
+
 STEP_LINE = re.compile(r"^\[llama\] step (\d+) loss (\S+) tokens/sec ([\d,]+)", re.M)
 
 
@@ -817,12 +1031,13 @@ def main() -> int:
     del dots_grads
     phase_i(build, peak)
     phase_j()
+    moe = phase_k(build, peak, flash, rope_mod)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]
 
     log(smi_line())
-    log(json.dumps({"kernels": list(results.values())}))
+    log(json.dumps({"kernels": list(results.values()) + list(moe.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

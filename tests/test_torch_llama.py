@@ -56,7 +56,7 @@ def rel_err(got, ref):
     return np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
 
 
-@pytest.mark.parametrize("name", ["llama-tiny", "narrow_hd128"])
+@pytest.mark.parametrize("name", ["llama-tiny", "narrow_hd128", "moe-tiny"])
 def test_converter_keys_shapes_and_layout(name):
     jmodel, params, tmodel, _ = build(name)
     state = convert.flax_to_state_dict(jax.tree.map(np.asarray, params))
@@ -122,8 +122,6 @@ def test_logits_bf16():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        llama.Llama(llama.CONFIGS["moe-tiny"], device="cpu")
     ring = dataclasses.replace(llama.CONFIGS["llama-tiny"], attention_impl="ring")
     with pytest.raises(NotImplementedError, match="ring"):
         llama.Llama(ring, device="cpu")

@@ -113,6 +113,12 @@ def test_unported_axes_are_refused():
             port_mesh.make_mesh(port_mesh.MeshSpec({"fsdp": 2, axis: 2}), "cpu")
     with pytest.raises(ValueError, match="unknown mesh axis"):
         port_mesh.MeshSpec({"model": 2})
+    # An MoE model's experts are not placed over tp or ep yet; a dense
+    # model shards over tp.
+    for axes in ({"fsdp": 1, "tp": 2}, {"fsdp": 2, "ep": 2}):
+        with pytest.raises(NotImplementedError, match="multi-card MoE"):
+            sharding.check_shardable(llama.CONFIGS["moe-tiny"], axes)
+    sharding.check_shardable(llama.CONFIGS["llama-tiny"], {"fsdp": 1, "tp": 2})
     assert port_mesh.AXIS_ORDER == ("slice", "pp", "dp", "fsdp", "ep", "sp", "tp")
 
 

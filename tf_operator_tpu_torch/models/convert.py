@@ -10,8 +10,10 @@ top-level ``"params"`` key) and returns the ``state_dict`` of
 - wq/wk/wv ``[d, h, hd]`` become Linear weights ``[h*hd, d]``; wo
   ``[h, hd, d]`` becomes ``[d, h*hd]``.
 - Dense kernels are transposed (w1/w3 ``[d, f]``, w2 ``[f, d]``, output
-  ``[d, V]``); ``tok_embeddings/embedding`` ``[V, d]`` and the norm
-  ``scale``s stay as they are.
+  ``[d, V]``, and an MoE layer's fp32 ``router/kernel`` ``[d, e]``);
+  ``tok_embeddings/embedding`` ``[V, d]``, the norm ``scale``s and the
+  expert weights ``experts_w1``/``experts_w3`` ``[e, d, f]`` and
+  ``experts_w2`` ``[e, f, d]`` stay as they are.
 - bf16 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   rejects; they travel as a ``uint16`` view, reinterpreted as bfloat16.
 """
@@ -60,6 +62,11 @@ def flax_to_state_dict(params: dict) -> dict:
         for name in ("wq", "wk", "wv"):
             out[pre + f"attention.{name}.weight"] = _proj_in(np.asarray(attn[name]["kernel"])[i])
         out[pre + "attention.wo.weight"] = _proj_out(np.asarray(attn["wo"]["kernel"])[i])
+        if "router" in ffn:  # MoE
+            out[pre + "feed_forward.router.weight"] = np.asarray(ffn["router"]["kernel"])[i].T
+            for name in ("experts_w1", "experts_w2", "experts_w3"):
+                out[pre + f"feed_forward.{name}"] = np.asarray(ffn[name])[i]
+            continue
         for name in ("w1", "w2", "w3"):
             out[pre + f"feed_forward.{name}.weight"] = np.asarray(ffn[name]["kernel"])[i].T
     return {k: _to_tensor(v) for k, v in out.items()}

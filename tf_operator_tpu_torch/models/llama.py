@@ -3,12 +3,14 @@
 Counterpart of ``tf_operator_tpu/models/llama.py`` (dense path): RMSNorm with
 fp32 math, RoPE on the two halves of each head (``ops/rope.py``), causal GQA
 flash attention (``ops/flash.py``) with separate wq/wk/wv projections, a
-SwiGLU MLP, and a final RMSNorm and output head. Dense layers compute in
+SwiGLU MLP (or, with ``cfg.n_experts``, a mixture of SwiGLU experts:
+:class:`MoE`), and a final RMSNorm and output head. Dense layers compute in
 ``cfg.dtype``; parameters live in ``cfg.param_dtype``.
 
 Parameter names follow the JAX model's tree (``tok_embeddings``,
-``layers.{i}.attention.wq``, ``layers.{i}.feed_forward.w1``, ``norm``,
-``output``), so ``models/convert.py`` maps one onto the other leaf by leaf.
+``layers.{i}.attention.wq``, ``layers.{i}.feed_forward.w1`` or
+``.feed_forward.router``/``.experts_w1``, ``norm``, ``output``), so
+``models/convert.py`` maps one onto the other leaf by leaf.
 
 Under ``cfg.remat`` each block runs under a reentrant
 ``torch.utils.checkpoint``, and ``cfg.remat_policy`` (the JAX model's
@@ -65,11 +67,19 @@ class LlamaConfig:
     # "pallas": the flash kernels (plain versions for CPU tensors); "xla":
     # the plain reference attention; "ring" is not ported yet.
     attention_impl: str = "pallas"
-    # Mixture-of-experts size, kept so CONFIGS and their parameter and FLOP
-    # accounting mirror the JAX package; the port's Llama refuses
-    # n_experts > 0 for now.
+    # Mixture-of-experts FFN (0 = dense): top-k routing with a per-expert
+    # capacity of capacity_factor * s * k / e slots (:class:`MoE`).
     n_experts: int = 0
     experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # Token routing: "einsum", the GShard one-hot dispatch/combine
+    # products; "gather", slot-indexed gathers and scatters of the same
+    # capacity assignment (the JAX package's differential oracle).
+    moe_impl: str = "einsum"
+    # Grouped dispatch: tokens route in independent groups of this many
+    # positions when it divides a longer sequence (0 = one group).
+    moe_group_size: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -121,8 +131,7 @@ class LlamaConfig:
         return int(v * d + self.n_layers * per_layer + d + d * v)
 
 
-# The JAX package's canonical configs (its MoE routing settings are not
-# ported yet).
+# The JAX package's canonical configs.
 CONFIGS = {
     "llama2-7b": LlamaConfig(),
     "llama-1b": LlamaConfig(dim=2048, n_layers=16, n_heads=16, n_kv_heads=16,
@@ -140,7 +149,8 @@ CONFIGS = {
     ),
     "moe-125m": LlamaConfig(
         dim=768, n_layers=12, n_heads=6, n_kv_heads=6, ffn_dim=2048,
-        n_experts=8, experts_per_token=2,
+        n_experts=8, experts_per_token=2, remat_policy="dots+rope+norms",
+        moe_group_size=256,
     ),
     "moe-tiny": LlamaConfig(
         vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=128,
@@ -278,13 +288,16 @@ def apply_rope(x, cos, sin, tag: Optional[str] = None):
 
 class Dense(nn.Linear):
     """Bias-free dense layer computed in ``cfg.dtype`` (Flax's
-    ``dtype=cfg.dtype``) on a weight kept in ``cfg.param_dtype``. It is
-    called as a module, so that the tensor-parallel plans' hooks
+    ``dtype=cfg.dtype``) on a weight kept in ``cfg.param_dtype``, or both
+    in ``dtype`` when it is given (the MoE router's fp32). It is called as
+    a module, so that the tensor-parallel plans' hooks
     (``parallel/sharding.py``) see its input and output."""
 
-    def __init__(self, cfg: LlamaConfig, d_in: int, d_out: int, device=None):
-        super().__init__(d_in, d_out, bias=False, device=device, dtype=cfg.param_dtype)
-        self.compute_dtype = cfg.dtype
+    def __init__(self, cfg: LlamaConfig, d_in: int, d_out: int, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(d_in, d_out, bias=False, device=device,
+                         dtype=dtype or cfg.param_dtype)
+        self.compute_dtype = dtype or cfg.dtype
 
     def forward(self, x):
         x, w = x.to(self.compute_dtype), self.weight.to(self.compute_dtype)
@@ -333,6 +346,137 @@ class MLP(nn.Module):
         return self.w2(_mul(F.silu(self.w1(x)), self.w3(x), "mlp_act"))
 
 
+class MoE(nn.Module):
+    """Mixture-of-experts SwiGLU FFN with GShard capacity dispatch, the
+    counterpart of the JAX model's ``MoE``; ``forward`` returns the output
+    and the layer's Switch load-balancing loss.
+
+    A bias-free router whose weight is fp32 whatever ``param_dtype`` says
+    scores the fp32 tokens; softmax, top-k and the renormalised gate pick
+    ``experts_per_token`` experts. Slots are assigned rank-major (every
+    rank-0 choice before any rank-1 choice), in integers, one rank at a
+    time; a token past an expert's ``capacity_factor * s * k / e`` slots is
+    dropped by that expert (the residual passes it through). With
+    ``moe_group_size`` the sequence routes in groups folded into the batch,
+    each with its own capacity. ``moe_impl`` routes by the one-hot
+    dispatch/combine einsums ("einsum") or by slot gathers ("gather"): two
+    formulations of one assignment. Expert weights are ``experts_w1``/
+    ``experts_w3`` ``[e, d, f]`` and ``experts_w2`` ``[e, f, d]``.
+
+    Under remat the router's product, which has no batch dimension, is kept
+    by "dots" (JAX's dots_with_no_batch_dims_saveable), so the replay routes
+    from the forward's own logits; the dispatch, expert and combine products
+    have one (b or e) and are replayed.
+    """
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        if cfg.moe_impl not in ("einsum", "gather"):
+            raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+        self.cfg = cfg
+        e, d, f = cfg.n_experts, cfg.dim, cfg.ffn_dim
+        self.router = Dense(cfg, d, e, device, dtype=torch.float32)
+
+        def weight(*shape):
+            return nn.Parameter(torch.empty(*shape, dtype=cfg.param_dtype, device=device))
+
+        self.experts_w1 = weight(e, d, f)
+        self.experts_w3 = weight(e, d, f)
+        self.experts_w2 = weight(e, f, d)
+
+    def forward(self, x):
+        cfg = self.cfg
+        b0, s0, d = x.shape
+        group = cfg.moe_group_size
+        if group and s0 > group and s0 % group == 0:
+            x = x.reshape(b0 * (s0 // group), group, d)
+        b, s, _ = x.shape
+        e, k = cfg.n_experts, cfg.experts_per_token
+        cap = max(1, int(cfg.capacity_factor * s * k / e))
+
+        probs = torch.softmax(self.router(x.float()), dim=-1)  # [b, s, e] fp32
+        gate, idx = torch.topk(probs, k)  # [b, s, k], descending as lax.top_k
+        gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+
+        # Capacity, rank-major, in integers (a bf16 count is exact only to
+        # 256): per rank, each token's slot in its chosen expert and
+        # whether it won one. Never [b, s, k, e, cap].
+        onehot = F.one_hot(idx, e)  # [b, s, k, e]
+        taken = torch.zeros(b, 1, e, dtype=onehot.dtype, device=x.device)
+        pos, keep = [], []
+        for j in range(k):
+            oh = onehot[:, :, j]
+            p = oh.cumsum(1) - oh + taken
+            pos.append(p)
+            keep.append((p < cap) & (oh > 0))
+            taken = taken + oh.sum(1, keepdim=True)
+        route = self._gather if cfg.moe_impl == "gather" else self._einsum
+        y = route(x, gate, idx, pos, keep, cap)
+
+        # Switch load-balance loss e * sum(f * P): f the share of routes to
+        # each expert, P its mean probability, over the grouped shapes.
+        f_frac = onehot.float().sum(2).mean((0, 1)) / k
+        aux = e * (f_frac * probs.mean((0, 1))).sum() * cfg.router_aux_weight
+        return y.to(x.dtype).reshape(b0, s0, d), aux
+
+    def _experts(self, h):
+        """The SwiGLU experts on their slots: [e, b, cap, d] -> same."""
+        dt = self.cfg.dtype
+        w1, w3, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_w3, self.experts_w2))
+        act = (F.silu(torch.einsum("ebcd,edf->ebcf", h, w1))
+               * torch.einsum("ebcd,edf->ebcf", h, w3))
+        return torch.einsum("ebcf,efd->ebcd", act, w2)
+
+    def _einsum(self, x, gate, idx, pos, keep, cap):
+        """GShard routing: combine [b, s, e, cap] built in ``cfg.dtype``, and
+        the dispatch mask from it (a gate that underflows drops its token)."""
+        dt = self.cfg.dtype
+        slots = torch.arange(cap, device=x.device)
+        combine = 0
+        for j in range(len(pos)):
+            weight = keep[j].to(dt) * gate[:, :, j, None].to(dt)  # [b, s, e]
+            slot = (pos[j].clamp(max=cap - 1)[..., None] == slots).to(dt)
+            combine = combine + weight[..., None] * slot
+        dispatch = (combine > 0).to(dt)
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(dt))
+        out = self._experts(expert_in)
+        # A bf16 product accumulates in fp32 and is rounded once, as the
+        # JAX einsum's preferred_element_type=float32 and its cast back.
+        return torch.einsum("bsec,ebcd->bsd", combine, out)
+
+    def _gather(self, x, gate, idx, pos, keep, cap):
+        """Slot-indexed routing: each (token, rank) takes flat slot
+        ``expert * cap + pos``, or the overflow row ``e * cap`` when it lost
+        the race. Every kept slot has one writer and duplicate writes land
+        only in the overflow row, which is dropped, so the order in which
+        the device applies the index writes changes no result."""
+        dt = self.cfg.dtype
+        b, s, d = x.shape
+        e, k = self.cfg.n_experts, self.cfg.experts_per_token
+
+        def chosen(per_rank):  # [b, s, e] per rank -> [b, s, k] at idx
+            return torch.stack([t.gather(2, idx[:, :, j, None])[..., 0]
+                                for j, t in enumerate(per_rank)], -1)
+
+        fslot = torch.where(chosen(keep), idx * cap + chosen(pos), e * cap).reshape(b, s * k)
+        token = torch.arange(s, device=x.device).repeat_interleave(k).expand(b, -1)
+        token_of_slot = torch.zeros(b, e * cap + 1, dtype=torch.long,
+                                    device=x.device).scatter_(1, fslot, token)
+        valid = torch.zeros(b, e * cap + 1, dtype=dt, device=x.device).scatter_(1, fslot, 1.0)
+        rows = x.to(dt).gather(1, token_of_slot[:, :-1, None].expand(-1, -1, d))
+        expert_in = (rows * valid[:, :-1, None]).view(b, e, cap, d).transpose(0, 1)
+        out = self._experts(expert_in)  # [e, b, cap, d]
+        # The overflow row is zeros: a dropped route adds nothing.
+        out_flat = torch.cat([out.transpose(0, 1).reshape(b, e * cap, d),
+                              out.new_zeros(b, 1, d)], dim=1)
+        contrib = out_flat.gather(1, fslot[..., None].expand(-1, -1, d)).view(b, s, k, d)
+        # The gate in cfg.dtype, as the einsum routing's combine holds it,
+        # and the k products summed in fp32: in bf16 too the two routings
+        # give the same output, so a layer routes the same tokens after
+        # either (the JAX gather path takes the fp32 gate: in fp32 the same).
+        return (contrib.float() * gate.to(dt).float()[..., None]).sum(2)
+
+
 class Block(nn.Module):
     """One decoder layer. Under ``cfg.remat`` its forward runs under a
     reentrant checkpoint, with a remat tape that keeps what the config's
@@ -341,20 +485,30 @@ class Block(nn.Module):
     card; the backward replays the block and differentiates the replay.
     The checkpoint sits inside the block, so that when the block is
     sharded (FSDP2 hooks on its call), the replay runs on the weights that
-    FSDP2 gathered for the backward, with no second forward hook."""
+    FSDP2 gathered for the backward, with no second forward hook.
+
+    ``forward`` returns ``(x, aux)``: the MoE layer's load-balancing loss,
+    or None for a dense layer. The aux term is an output of the
+    checkpointed function, not state kept on the module: the reentrant
+    forward runs with no graph, and only the replay's outputs carry one.
+    """
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, device)
         self.attention = Attention(cfg, device)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, device)
-        self.feed_forward = MLP(cfg, device)
+        self.moe = cfg.n_experts > 0
+        self.feed_forward = MoE(cfg, device) if self.moe else MLP(cfg, device)
         self.remat = cfg.remat
         self.saves = _remat_policy(cfg)
 
     def _forward(self, x, cos, sin):
         x = x + self.attention(self.attention_norm(x), cos, sin)
-        return x + self.feed_forward(self.ffn_norm(x))
+        if self.moe:
+            h, aux = self.feed_forward(self.ffn_norm(x))
+            return x + h, aux
+        return x + self.feed_forward(self.ffn_norm(x)), None
 
     def forward(self, x, cos, sin):
         # A reentrant checkpoint differentiates only through inputs that
@@ -375,9 +529,6 @@ class Llama(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None, pp: int = 1):
         super().__init__()
-        if config.n_experts:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP Queue 1: off-path models, MoE)")
         if config.attention_impl == "ring":
             raise NotImplementedError(
                 "ring attention is not ported yet (ROADMAP Queue 1: off-path models, "
@@ -416,23 +567,30 @@ class Llama(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, tokens, targets=None, return_hidden: bool = False):
+    def forward(self, tokens, targets=None, return_hidden: bool = False,
+                return_aux: bool = False):
         """Logits [b, s, vocab] fp32; with ``targets``, the mean next-token
-        loss, its head applied per sequence chunk (``chunked_cross_entropy``)
-        inside this forward, where a sharded head is gathered; with
-        ``return_hidden``, the pre-logits hidden states."""
+        loss plus the MoE layers' load-balancing losses (the loss the JAX
+        package's ``loss_fn`` forms), its head applied per sequence chunk
+        (``chunked_cross_entropy``) inside this forward, where a sharded
+        head is gathered; with ``return_hidden``, the pre-logits hidden
+        states. ``return_aux`` returns ``(logits or hidden, aux)``, the sum
+        of the layers' load-balancing losses (None for a dense model)."""
         cfg = self.config
         s = tokens.shape[1]
         x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
         positions = torch.arange(s, device=tokens.device)[None]
         cos, sin = gather_rope(cfg, positions)
+        aux = None
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            x, layer_aux = layer(x, cos, sin)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
         x = self.norm(x)
         if targets is not None:
             # The [b, s, vocab] fp32 logits never exist whole.
-            return chunked_cross_entropy(x, self.output.weight.to(x.dtype), targets)
-        if return_hidden:
-            return x
-        return self.output(x).float()
+            loss = chunked_cross_entropy(x, self.output.weight.to(x.dtype), targets)
+            return loss if aux is None else loss + aux
+        out = x if return_hidden else self.output(x).float()
+        return (out, aux) if return_aux else out
 

@@ -22,9 +22,9 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXIS_ORDER = ("slice", "pp", "dp", "fsdp", "ep", "sp", "tp")
 NOT_PORTED = {
-    "pp": "pipeline parallelism is not ported yet (ROADMAP Queue 1 item 5d, pipeline)",
-    "ep": "expert parallelism is not ported yet (ROADMAP Queue 1 item 5a, MoE)",
-    "sp": "sequence parallelism is not ported yet (ROADMAP Queue 1 item 5c, ring attention)",
+    "pp": "pipeline parallelism is not ported yet (ROADMAP Queue 1 item 7d, pipeline)",
+    "ep": "expert parallelism is not ported yet (ROADMAP Queue 1 item 3a, multi-card MoE)",
+    "sp": "sequence parallelism is not ported yet (ROADMAP Queue 1 item 7c, ring attention)",
 }
 
 

@@ -15,6 +15,12 @@ The embedding and the output head are sharded over fsdp only, replicated
 over tp, where the JAX rules also put their d (embedding) or vocab (head)
 dim over tp: a difference of layout, not of results. Vocab-parallel loss
 comes later.
+
+An MoE layer's fp32 router gets a ``fully_shard`` group of its own, since
+FSDP2 needs one original dtype in a group and the block's other
+parameters are in ``param_dtype``; its experts shard over fsdp with the
+block. Experts over ``ep`` or ``tp`` (the JAX package's
+``moe_expert_axes``, an all-to-all dispatch) are refused until ported.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from torch.distributed.tensor.parallel import (
     RowwiseParallel,
     parallelize_module,
 )
+
+from .mesh import mesh_axes
 
 DATA_AXES = ("slice", "dp", "fsdp", "ep")
 _REPLICATE_AXES = ("slice", "dp")
@@ -91,15 +99,28 @@ def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
     return mesh[(*rep, "fsdp")]
 
 
+def check_shardable(config, axes: dict) -> None:
+    """Refuse a layout the port cannot shard ``config`` over yet: an MoE
+    model with ``tp`` or ``ep`` above 1."""
+    if config.n_experts and any(axes.get(a, 1) > 1 for a in ("tp", "ep")):
+        raise NotImplementedError(
+            f"MoE over mesh {axes}: experts over ep or tp are not ported yet "
+            "(ROADMAP Queue 1 item 3a, multi-card MoE)")
+
+
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Shard ``model`` (a Llama, before its storage exists: on the meta
     device) over ``mesh`` in place: tensor-parallel plans on each block over
-    ``tp`` when it is above 1, then FSDP2 on each block and on the root."""
+    ``tp`` when it is above 1, then FSDP2 on each MoE router, each block and
+    the root."""
+    check_shardable(model.config, mesh_axes(mesh))
     if "tp" in mesh.mesh_dim_names and mesh["tp"].size() > 1:
         for block in model.layers:
             parallelize_module(block, mesh["tp"], _tp_plan(block))
     fsdp = _fsdp_mesh(mesh)
     for block in model.layers:
+        if block.moe:
+            fully_shard(block.feed_forward.router, mesh=fsdp)
         fully_shard(block, mesh=fsdp)
     fully_shard(model, mesh=fsdp)
     return model
