@@ -2,9 +2,11 @@
 
     python3 scripts/profile_torch_step.py [--model llama-400m] [--batch 8]
         [--seq 2048] [--steps 2] [--remat-policy dots]
+    python3 scripts/profile_torch_step.py --model bert-base --batch 16 --seq 512
 
-Builds the port's train step through the llama_train entry point's setup,
-runs one warm-up step, then traces ``--steps`` steps with torch.profiler
+Builds the port's train step through the llama_train entry point's setup
+(a BERT model: the JAX bench's BERT step, ``bert_setup``), runs one
+warm-up step, then traces ``--steps`` steps with torch.profiler
 (CPU and CUDA activities). Prints the step wall time (host clock around
 steps that end in a device synchronise), the device time of every kernel
 summed by group (the port's four hand-written kernels, matrix products,
@@ -18,6 +20,7 @@ numbers. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +48,35 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def bert_setup(args):
+    """(state, step, batches) of the JAX bench's BERT step (``bench.py``
+    ``bench_bert``): ``make_train_step`` with ``train_step.loss_fn`` (no
+    mask: the flash kernels; the chunked loss over the tied head),
+    ``make_optimizer(warmup_steps=10, decay_steps=1000)``, and seeded
+    synthetic token batches ``[batch, seq + 1]`` on the card."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.models import bert
+    from tf_operator_tpu_torch.train.train_step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(bert.CONFIGS[args.model], remat_policy=args.remat_policy)
+    model = bert.Bert(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    optimizer = make_optimizer(warmup_steps=10, decay_steps=1000)
+    rng = np.random.default_rng(0)
+
+    def batches():
+        while True:
+            yield torch.from_numpy(rng.integers(0, cfg.vocab_size, (args.batch, args.seq + 1),
+                                                dtype=np.int32)).cuda()
+
+    return init_train_state(model, optimizer), make_train_step(optimizer), batches()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="llama-400m")
@@ -66,11 +98,14 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
-    targs = llama_train.parse_args(["--model", args.model, "--batch", str(args.batch),
-                                    "--seq", str(args.seq), "--steps", str(args.steps),
-                                    "--remat-policy", args.remat_policy])
-    run = llama_train.setup(targs)
-    state, step_fn, data = run.state, run.step_fn, run.batches
+    if args.model.startswith("bert"):
+        state, step_fn, data = bert_setup(args)
+    else:
+        targs = llama_train.parse_args(["--model", args.model, "--batch", str(args.batch),
+                                        "--seq", str(args.seq), "--steps", str(args.steps),
+                                        "--remat-policy", args.remat_policy])
+        run = llama_train.setup(targs)
+        state, step_fn, data = run.state, run.step_fn, run.batches
     state, loss = step_fn(state, next(data))  # warm-up: kernel build, allocator
     float(loss)
     torch.cuda.synchronize()

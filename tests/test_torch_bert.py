@@ -1,0 +1,306 @@
+"""The port's BERT (``models/bert.py``, ``train/bert_train.py``) against the
+JAX package's, on the CPU: fp32 bert-tiny from the same weights, carried
+across by ``models/convert.py``, at batch 2 and seq 32. The weights are the
+JAX init's with every bias and LayerNorm parameter (zeros and ones there)
+moved by seeded noise, so that a swapped or dropped one shows.
+
+Tolerances, fp32: logits, with and without a padding mask, 1e-5 relative
+to the largest logit (the frameworks sum in other orders; the port's plain
+flash recurrence against JAX's XLA attention); the loss of the shared
+``loss_fn`` (the chunked cross entropy over the tied head with its bias) to
+1e-5 relative, and each gradient to 1e-4 relative in L2. The attention key
+bias adds q.b to every score of a query's row, which the softmax cancels:
+its exact gradient is 0, and both packages' are held to 1e-4 of the query
+bias's gradient norm. Two AdamW steps of ``train_step.adamw`` on the JAX
+gradients (the second scaled by -0.5, so that the moments' decay rates
+show) against ``optax.adamw(1e-4, weight_decay=0.01)``: each parameter
+within 1e-3 of its change plus two units in the last place of its fp32
+value (the rounding of p + change, which the two order differently).
+Remat against no remat: 1e-6 (the replay recomputes the same fp32
+operations).
+"""
+
+import dataclasses
+import functools
+import importlib.util
+import math
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tf_operator_tpu.models import bert as jax_bert
+from tf_operator_tpu.train import train_step as jax_ts
+from tf_operator_tpu_torch.models import bert, convert
+from tf_operator_tpu_torch.ops import flash
+from tf_operator_tpu_torch.parallel import sharding
+from tf_operator_tpu_torch.runtime import gpu_init
+from tf_operator_tpu_torch.train import bert_train
+from tf_operator_tpu_torch.train import train_step as ts
+
+EXAMPLE = pathlib.Path(__file__).resolve().parents[1] / "examples/jax/bert/bert_train.py"
+SEQ, BATCH = 32, 2
+TOKENS = np.random.default_rng(1).integers(0, 256, (BATCH, SEQ), np.int32)
+LM_BATCH = np.random.default_rng(2).integers(0, 256, (BATCH, SEQ + 1), np.int32)
+MASK = np.ones((BATCH, SEQ), bool)
+MASK[1, 20:] = False  # the second sequence padded after 20 tokens
+ADAMW = dict(learning_rate=1e-4, weight_decay=0.01)
+GRAD_SCALES = (1.0, -0.5)  # the gradients of each AdamW step
+
+
+def configs(**changes):
+    """(JAX config, port config) of fp32 bert-tiny with ``changes``."""
+    jcfg = dataclasses.replace(jax_bert.CONFIGS["bert-tiny"], dtype=jnp.float32,
+                               param_dtype=jnp.float32, **changes)
+    tcfg = dataclasses.replace(bert.CONFIGS["bert-tiny"], dtype=torch.float32,
+                               param_dtype=torch.float32, **changes)
+    return jcfg, tcfg
+
+
+def moved(params):
+    """Every bias and LayerNorm scale moved by seeded noise."""
+    rng = np.random.default_rng(3)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(params)
+    leaves = []
+    for path, leaf in flat:
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name in ("bias", "scale", "mlm_bias"):
+            leaf = leaf + 0.1 * rng.standard_normal(leaf.shape).astype(np.float32)
+        leaves.append(leaf)
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+@functools.cache
+def reference():
+    """The JAX side, in one compiled call: logits with and without the
+    padding mask, the train step's ``loss_fn`` and its gradients, and the
+    parameters after an update of optax.adamw on those gradients for each
+    of GRAD_SCALES. Returned as numpy, parameter trees as the port's
+    state_dicts."""
+    jmodel = jax_bert.Bert(configs()[0])
+    params = moved({"params": jax.tree.map(
+        np.asarray, jax_bert.init_params(jmodel, jax.random.PRNGKey(0), seq=SEQ))})
+    tx = optax.adamw(ADAMW["learning_rate"], weight_decay=ADAMW["weight_decay"])
+
+    def run(params):
+        logits = jmodel.apply(params, TOKENS)
+        masked = jmodel.apply(params, TOKENS, attention_mask=MASK)
+        loss, grads = jax.value_and_grad(lambda p: jax_ts.loss_fn(jmodel, p, LM_BATCH))(params)
+        stepped, opt_state = params, tx.init(params)
+        for scale in GRAD_SCALES:
+            scaled = jax.tree.map(lambda g: scale * g, grads)
+            updates, opt_state = tx.update(scaled, opt_state, stepped)
+            stepped = optax.apply_updates(stepped, updates)
+        return logits, masked, loss, grads, stepped
+
+    # XLA's backend optimisations cost compile time and buy nothing here.
+    compiled = jax.jit(run).lower(params).compile({"xla_backend_optimization_level": 0})
+    logits, masked, loss, grads, stepped = compiled(params)
+
+    def state(tree):
+        return convert.bert_flax_to_state_dict(jax.tree.map(np.asarray, tree))
+
+    return {"params": params, "state": state(params), "logits": np.asarray(logits),
+            "masked": np.asarray(masked), "loss": float(loss), "grads": state(grads),
+            "stepped": state(stepped)}
+
+
+def build(**changes):
+    model = bert.Bert(configs(**changes)[1], device="cpu")
+    model.load_state_dict(reference()["state"])
+    return model
+
+
+def rel_err(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+
+
+def assert_logits(got, ref):
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def assert_grads(grads, ref, tol=1e-4):
+    for name, g in grads.items():
+        if name.endswith(".key.bias"):  # exactly 0: rounding noise on both sides
+            scale = np.linalg.norm(ref[name.replace(".key.", ".query.")])
+            assert np.linalg.norm(g) <= 1e-4 * scale, name
+            assert np.linalg.norm(ref[name]) <= 1e-4 * scale, name
+            continue
+        assert rel_err(g, ref[name]) < tol, name
+
+
+def port_loss_and_grads(model):
+    loss = ts.loss_fn(model, torch.from_numpy(LM_BATCH).long())
+    loss.backward()
+    return loss.item(), {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+
+
+def test_converter_maps_every_flax_leaf_to_one_parameter():
+    params = reference()["params"]
+    state = reference()["state"]
+    model = bert.Bert(bert.CONFIGS["bert-tiny"], device="cpu")
+    assert len(jax.tree.leaves(params)) == len(state)
+    assert {k: tuple(v.shape) for k, v in state.items()} == {
+        k: tuple(v.shape) for k, v in model.state_dict().items()}
+    p = params["params"]
+    q = p["layer_1"]["attention"]["query"]
+    np.testing.assert_array_equal(state["layers.1.attention.query.weight"].numpy(),
+                                  q["kernel"].reshape(q["kernel"].shape[0], -1).T)
+    np.testing.assert_array_equal(state["layers.1.attention.query.bias"].numpy(),
+                                  q["bias"].reshape(-1))
+    np.testing.assert_array_equal(state["layers.0.ffn_in.weight"].numpy(),
+                                  p["layer_0"]["ffn_in"]["kernel"].T)
+    np.testing.assert_array_equal(state["mlm_bias"].numpy(), p["mlm_bias"])
+    # LayerNorms and the MLM bias stay fp32 whatever param_dtype says.
+    assert model.layers[0].ln_attn.scale.dtype == torch.float32
+    assert model.mlm_bias.dtype == torch.float32
+    assert model.layers[0].ffn_in.weight.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "padding_mask"])
+def test_logits_match_jax(masked):
+    model = build()
+    with torch.no_grad():
+        if masked:
+            logits = model(torch.from_numpy(TOKENS).long(),
+                           attention_mask=torch.from_numpy(MASK))
+        else:
+            logits = model(torch.from_numpy(TOKENS).long())
+    assert logits.dtype == torch.float32
+    assert_logits(logits.numpy(), reference()["masked" if masked else "logits"])
+
+
+def test_padding_mask_changes_the_padded_sequence_only():
+    ref = reference()
+    np.testing.assert_array_equal(ref["masked"][0], ref["logits"][0])
+    assert rel_err(ref["masked"][1], ref["logits"][1]) > 1e-3
+
+
+def test_exact_gelu_would_fail_the_parity(monkeypatch):
+    """Flax's nn.gelu is the tanh approximation; F.gelu's default is exact."""
+    monkeypatch.setattr(bert, "gelu", F.gelu)
+    with torch.no_grad():
+        logits = build()(torch.from_numpy(TOKENS).long()).numpy()
+    with pytest.raises(AssertionError):
+        assert_logits(logits, reference()["logits"])
+
+
+def test_loss_fn_loss_and_grads_match_jax():
+    """The bench's loss: next-token CE through the chunked head with the
+    MLM bias (JAX: loss_fn via head_kernel_and_bias)."""
+    loss, grads = port_loss_and_grads(build())
+    assert loss == pytest.approx(reference()["loss"], rel=1e-5)
+    assert_grads(grads, {n: t.numpy() for n, t in reference()["grads"].items()})
+    assert np.linalg.norm(grads["mlm_bias"]) > 0
+
+
+def test_adamw_steps_match_optax():
+    """train_step.adamw is optax.adamw: constant learning rate, no clip,
+    b2 0.999, eps 1e-8, decay on every parameter."""
+    model = build()
+    opt = ts.adamw(**ADAMW)
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    before = {n: p.detach().clone().numpy() for n, p in zip(names, params)}
+    grads = [reference()["grads"][n] for n in names]
+    state = opt.init(params)
+    for scale in GRAD_SCALES:
+        state = opt.update_(params, [scale * g for g in grads], state)
+    assert state.count == len(GRAD_SCALES)
+    assert opt.schedule(0) == opt.schedule(1000) == ADAMW["learning_rate"]
+    for n, p in zip(names, params):
+        want = reference()["stepped"][n].numpy()
+        bound = 1e-3 * np.abs(want - before[n]) + 2 * np.spacing(np.abs(before[n]))
+        assert (np.abs(p.detach().numpy() - want) <= bound).all(), n
+        assert np.abs(want - before[n]).max() > 1e-5, n
+
+
+@pytest.mark.parametrize("policy", ["dots", "nothing"])
+def test_remat_gives_the_no_remat_grads_and_replays_flash(monkeypatch, policy):
+    """BERT's "dots" keeps the products only (JAX's dots_with_no_batch_
+    dims_saveable): the flash forward runs again in each layer's replay."""
+    calls = []
+    plain = flash.flash_forward_plain
+    monkeypatch.setattr(flash, "flash_forward_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    loss, grads = port_loss_and_grads(build())
+    no_remat_calls = len(calls)
+    model = build(remat=True, remat_policy=policy)
+    assert "flash" not in model.layers[0].saves
+    calls.clear()
+    rloss, rgrads = port_loss_and_grads(model)
+    n_layers = bert.CONFIGS["bert-tiny"].n_layers
+    assert (no_remat_calls, len(calls)) == (n_layers, 2 * n_layers)
+    assert rloss == pytest.approx(loss, rel=1e-6)
+    for name, g in rgrads.items():
+        np.testing.assert_allclose(g, grads[name], rtol=1e-6, atol=1e-9, err_msg=name)
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat_policy"):
+        build(remat=True, remat_policy="dots+rope")
+
+
+def test_mlm_batch_is_the_example_recipe(monkeypatch):
+    """The example's own loop, run until it hands its first batch to
+    shard_batch, draws the arrays mlm_batch draws from the same seed."""
+    import tf_operator_tpu.train.data as jax_data
+
+    spec = importlib.util.spec_from_file_location("jax_bert_train", EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+
+    seen = []
+
+    class Taken(Exception):
+        pass
+
+    def take(x, sharding):
+        seen.append(np.asarray(x))
+        if len(seen) == 3:
+            raise Taken
+
+    monkeypatch.setattr(jax_data, "shard_batch", take)
+    with pytest.raises(Taken):
+        example.main(["--model", "bert-tiny", "--batch", "4", "--seq", "16",
+                      "--mask-prob", "0.3", "--steps", "1"])
+    ours = bert_train.mlm_batch(np.random.default_rng(0), 256, 4, 16, 0.3)
+    for got, want in zip(ours, seen):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+    assert (ours[1] >= 0).any() and (ours[0] == bert_train.MASK_ID).any()
+
+
+def test_bert_train_prints_finite_losses(capsys):
+    assert bert_train.main(["--device", "cpu", "--steps", "3", "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split()[4]) for line in out.splitlines()
+              if line.startswith("[bert] step ")]
+    assert "[bert] bert-tiny process 0/1" in out and "[bert] done" in out
+    assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
+    assert abs(losses[0] - math.log(256)) < 0.5
+
+
+def test_multi_card_bert_is_refused(monkeypatch):
+    monkeypatch.setattr(gpu_init, "initialize",
+                        lambda device=None: gpu_init.Topology(num_processes=2))
+    with pytest.raises(NotImplementedError, match="3b"):
+        bert_train.run(bert_train.parse_args(["--device", "cpu", "--steps", "1"]))
+    with pytest.raises(NotImplementedError, match="3b"):
+        sharding.check_shardable(bert.CONFIGS["bert-base"], {"fsdp": 2})
+
+
+def test_config_accounting_matches():
+    assert 105e6 < bert.CONFIGS["bert-base"].param_count() < 115e6
+    for name, jcfg in jax_bert.CONFIGS.items():
+        tcfg = bert.CONFIGS[name]
+        assert tcfg.head_dim == jcfg.head_dim, name
+        assert tcfg.param_count() == jcfg.param_count(), name
+        assert tcfg.flops_per_token(512) == jcfg.flops_per_token(512), name
+    assert {c.head_dim for c in bert.CONFIGS.values()} == {16, 64}

@@ -169,6 +169,30 @@ def test_grads_bf16():
     assert_grads(got, ref, 5e-2)
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["non_causal", "causal"])
+def test_grads_match_pallas_head_dim_64(causal):
+    """head_dim 64, BERT's (non-causal) and a causal case, against the
+    Pallas kernels, which take head_dim from the shape."""
+    arrays = rand_qkv(15, 1, 128, 2, 2, 64)
+    w = weights((1, 128, 2, 64))
+    got = torch_grads(functools.partial(flash.flash_attention, causal=causal,
+                                        block_q=64, block_k=64), arrays, w)
+    ref = jax_grads(functools.partial(pallas, causal=causal, block_q=64, block_k=64), arrays, w)
+    assert_grads(got, ref, 3e-5)
+
+
+def test_kernels_take_head_dims_64_and_128_only():
+    """The kernel wrappers refuse any other head dim before they launch,
+    and count each head dim's kernel apart."""
+    for d in flash.KERNEL_HEAD_DIMS:
+        t = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+        flash._check_kernel_qkv(t, t, t, causal=True)
+    t = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\), not 32"):
+        flash._check_kernel_qkv(t, t, t, causal=True)
+    assert [flash.kernel_name("flash_dq", d) for d in (128, 64)] == ["flash_dq", "flash_dq_d64"]
+
+
 def test_dlse_cotangent_matches_pallas():
     """Both outputs carry cotangents: dlse folds into delta."""
     arrays = rand_qkv(14, 1, 128, 4, 2, 32)

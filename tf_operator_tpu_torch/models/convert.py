@@ -1,4 +1,5 @@
-"""Weights carried across: the JAX Llama's params -> the port's state_dict.
+"""Weights carried across: the JAX Llama's and BERT's params -> the port's
+state_dicts.
 
 Takes the JAX package's parameter tree as nested dicts of numpy arrays (as
 ``jax.tree.map(np.asarray, params)`` gives them, with or without the
@@ -14,6 +15,11 @@ top-level ``"params"`` key) and returns the ``state_dict`` of
   ``tok_embeddings/embedding`` ``[V, d]``, the norm ``scale``s and the
   expert weights ``experts_w1``/``experts_w3`` ``[e, d, f]`` and
   ``experts_w2`` ``[e, f, d]`` stay as they are.
+- BERT (:func:`bert_flax_to_state_dict`): ``layer_{i}`` becomes
+  ``layers.{i}``; the query/key/value ``DenseGeneral`` kernels ``[d, h, hd]``
+  become ``[h*hd, d]`` and their biases ``[h, hd]`` ``[h*hd]``; ``Dense``
+  kernels are transposed; the embeddings, the fp32 LayerNorm ``scale``/
+  ``bias`` and ``mlm_bias`` stay as they are.
 - bf16 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   rejects; they travel as a ``uint16`` view, reinterpreted as bfloat16.
 """
@@ -69,4 +75,41 @@ def flax_to_state_dict(params: dict) -> dict:
             continue
         for name in ("w1", "w2", "w3"):
             out[pre + f"feed_forward.{name}.weight"] = np.asarray(ffn[name]["kernel"])[i].T
+    return {k: _to_tensor(v) for k, v in out.items()}
+
+
+def bert_flax_to_state_dict(params: dict) -> dict:
+    """JAX BERT params (numpy leaves) -> the state_dict of
+    ``models.bert.Bert`` (CPU tensors in the leaves' dtypes)."""
+    p = params.get("params", params)
+    out = {
+        "tok_embeddings.weight": p["tok_embed"]["embedding"],
+        "pos_embeddings.weight": p["pos_embed"]["embedding"],
+        "type_embeddings.weight": p["type_embed"]["embedding"],
+        "mlm_bias": p["mlm_bias"],
+    }
+
+    def dense(name, leaf):
+        out[f"{name}.weight"] = np.asarray(leaf["kernel"]).T
+        out[f"{name}.bias"] = leaf["bias"]
+
+    def norm(name, leaf):
+        out[f"{name}.scale"] = leaf["scale"]
+        out[f"{name}.bias"] = leaf["bias"]
+
+    norm("ln_embed", p["ln_embed"])
+    dense("mlm_transform", p["mlm_transform"])
+    norm("mlm_ln", p["mlm_ln"])
+    n_layers = sum(name.startswith("layer_") for name in p)
+    for i in range(n_layers):
+        layer, pre = p[f"layer_{i}"], f"layers.{i}."
+        attn = layer["attention"]
+        for name in ("query", "key", "value"):
+            out[pre + f"attention.{name}.weight"] = _proj_in(np.asarray(attn[name]["kernel"]))
+            out[pre + f"attention.{name}.bias"] = np.asarray(attn[name]["bias"]).reshape(-1)
+        dense(pre + "attention.out", attn["out"])
+        for name in ("ffn_in", "ffn_out"):
+            dense(pre + name, layer[name])
+        for name in ("ln_attn", "ln_ffn"):
+            norm(pre + name, layer[name])
     return {k: _to_tensor(v) for k, v in out.items()}

@@ -231,6 +231,13 @@ class _Cast(torch.autograd.Function):
         return dy.to(ctx.src_dtype), None, None
 
 
+def linear(x, w):
+    """``F.linear(x, w)``: the matrix product whose output a "dots" remat
+    tape keeps (JAX's dots_with_no_batch_dims_saveable), else the plain
+    product."""
+    return _Linear.apply(x, w) if remat.saving("dots") else F.linear(x, w)
+
+
 def _mul(a, b, tag: str):
     """``a * b``, the op that the JAX model names ``tag``: one the tape
     keeps when the policy saves ``tag``, else the plain product."""
@@ -300,10 +307,7 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype or cfg.dtype
 
     def forward(self, x):
-        x, w = x.to(self.compute_dtype), self.weight.to(self.compute_dtype)
-        if remat.saving("dots"):
-            return _Linear.apply(x, w)
-        return F.linear(x, w)
+        return linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
 
 
 class Attention(nn.Module):

@@ -37,7 +37,9 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-KERNELS = ("rope", "flash_fwd", "flash_dq", "flash_dkv")
+# The flash kernels at head_dim 128, then their head_dim-64 instances.
+KERNELS = ("rope", "flash_fwd", "flash_dq", "flash_dkv",
+           "flash_fwd_d64", "flash_dq_d64", "flash_dkv_d64")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()

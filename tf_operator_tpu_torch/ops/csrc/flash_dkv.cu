@@ -12,9 +12,11 @@
 // bf16 before their products; every sum is fp32.
 //
 // Bound on the H100: operations. At llama-400m (bs 8, seq 2048, 8 heads x
-// 128, causal) it does 4 products, 137.5 GFLOP.
+// 128, causal) it does 4 products, 137.5 GFLOP; at bert-base (bs 16, seq
+// 512, 12 heads x 64, non-causal) 25.8 GFLOP against 76.3 MB.
 //
-// Design (sm_90a, the building blocks in hopper.cuh). One block per (128
+// Design (sm_90a, the building blocks in hopper.cuh). One kernel for each
+// head_dim, 64 and 128 (the template argument kD). One block per (128
 // keys, KV head, batch), two warpgroups of 64 key rows each, in the
 // transposed frame so that each warpgroup owns its key rows end to end.
 // - Thread 0 loads the block's K and V tiles once. Then warp 0 streams, for
@@ -27,9 +29,10 @@
 //   K-major from the swizzled tiles. P^T = exp2(S^T * scale * log2 e - lse
 //   * log2 e) and dS^T = P^T (dP^T - delta) run on the accumulator
 //   registers, lse and delta broadcast per column (query).
-// - dV += P^T dO and dK += dS^T Q are wgmma m64n128k16 with A from registers
-//   (P^T and dS^T cast to bf16 pairs) and B the same dO and Q tiles read
-//   MN-major. dK and dV (64 + 64 fp32 a thread) stay in registers: with 256
+// - dV += P^T dO and dK += dS^T Q are wgmma m64n128k16 (m64n64k16 at
+//   head_dim 64) with A from registers (P^T and dS^T cast to bf16 pairs)
+//   and B the same dO and Q tiles read MN-major. dK and dV (64 + 64 fp32 a
+//   thread, 32 + 32 at head_dim 64) stay in registers: with 256
 //   threads a block may use 255 registers a thread, and this kernel needs
 //   about 230. (With a third, producer warpgroup the compiler held every
 //   thread to 168 and spilled; setmaxnreg did not lift that.)
@@ -40,7 +43,7 @@
 // - Epilogue: dK * scale and dV to bf16, staged in the warpgroup's own K
 //   and V rows and written by TMA store (rows past the end are not
 //   written).
-// Shared memory 163 KB: one block an SM.
+// Shared memory 163 KB at head_dim 128 (82 KB at 64): one block an SM.
 
 #include "hopper.cuh"
 
@@ -49,7 +52,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kD = 128;                        // head_dim
 constexpr int kRowsWG = 64;                    // key rows of a consumer warpgroup
 constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kBlockN = kRowsWG * kConsumers;  // keys of a block
@@ -58,35 +60,42 @@ constexpr int kStages = 3;
 constexpr int kLead = kStages - 2;  // Q tiles loaded ahead of the one in use
 constexpr int kThreads = 128 * kConsumers;
 
-constexpr int kWGBytes = kRowsWG * kD * 2;     // 16 KB: two halves of [64][64]
-constexpr int kWGHalf = kWGBytes / 2;
-constexpr int kQBytes = kBlockM * kD * 2;      // 16 KB
-constexpr int kQHalf = kQBytes / 2;
-constexpr int kOffK = 0;
-constexpr int kOffV = kOffK + kConsumers * kWGBytes;
-constexpr int kOffQ = kOffV + kConsumers * kWGBytes;
-constexpr int kOffDO = kOffQ + kStages * kQBytes;
-constexpr int kOffRows = kOffDO + kStages * kQBytes;  // [stage][lse 64, delta 64] fp32
-constexpr int kOffBar = kOffRows + kStages * 2 * kBlockM * 4;
-
 struct Barriers {
   uint64_t kv;               // the K and V tiles have landed
   uint64_t full[kStages];    // Q, dO, lse and delta of the stage are in
   uint64_t empty[kStages];   // every consumer thread is done with the stage
 };
 
-constexpr int kSmemBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+// Shared memory of the head_dim-kD kernel: tiles of kD / 64 halves of 64
+// columns.
+template <int kD>
+struct Smem {
+  static constexpr int kHalves = kD / 64;
+  static constexpr int kWGBytes = kRowsWG * kD * 2;   // a warpgroup's K or V rows
+  static constexpr int kWGHalf = kRowsWG * 64 * 2;    // 8 KB: [64][64]
+  static constexpr int kQBytes = kBlockM * kD * 2;    // a Q or dO tile
+  static constexpr int kQHalf = kBlockM * 64 * 2;     // 8 KB
+  static constexpr int kOffK = 0;
+  static constexpr int kOffV = kOffK + kConsumers * kWGBytes;
+  static constexpr int kOffQ = kOffV + kConsumers * kWGBytes;
+  static constexpr int kOffDO = kOffQ + kStages * kQBytes;
+  static constexpr int kOffRows = kOffDO + kStages * kQBytes;  // [stage][lse 64, delta 64] fp32
+  static constexpr int kOffBar = kOffRows + kStages * 2 * kBlockM * 4;
+  static constexpr int kBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+};
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap dk_map, const __grid_constant__ CUtensorMap dv_map,
     const float* __restrict__ lse, const float* __restrict__ delta, int B, int H, int KVH,
     int Sq, int Sk, int causal, float scale) {
+  using L = Smem<kD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  Barriers& bar = *reinterpret_cast<Barriers*>(smem + kOffBar);
-  float* rows = reinterpret_cast<float*>(smem + kOffRows);
+  Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kOffBar);
+  float* rows = reinterpret_cast<float*>(smem + L::kOffRows);
 
   const int bkv = static_cast<int>(blockIdx.x) % (B * KVH);
   const int kt = static_cast<int>(blockIdx.x) / (B * KVH);  // K tile 0 has the most work
@@ -112,11 +121,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
     const int lane = threadIdx.x % 32;
     if (it >= kStages) mbar_wait(&bar.empty[s], (it / kStages - 1) & 1);
     if (lane == 0) {
-      mbar_expect_tx(&bar.full[s], 2 * kQBytes);
-      for (int half = 0; half < 2; ++half) {
-        tma_load_4d(smem + kOffQ + s * kQBytes + half * kQHalf, q_tma, &bar.full[s],
+      mbar_expect_tx(&bar.full[s], 2 * L::kQBytes);
+      for (int half = 0; half < L::kHalves; ++half) {
+        tma_load_4d(smem + L::kOffQ + s * L::kQBytes + half * L::kQHalf, q_tma, &bar.full[s],
                     half * 64, h, q0, b);
-        tma_load_4d(smem + kOffDO + s * kQBytes + half * kQHalf, do_tma, &bar.full[s],
+        tma_load_4d(smem + L::kOffDO + s * L::kQBytes + half * L::kQHalf, do_tma, &bar.full[s],
                     half * 64, h, q0, b);
       }
     }
@@ -137,13 +146,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
       mbar_init(&bar.empty[s], kThreads);
     }
     fence_barrier_init();
-    mbar_arrive_expect_tx(&bar.kv, 2 * kConsumers * kWGBytes);
+    mbar_arrive_expect_tx(&bar.kv, 2 * kConsumers * L::kWGBytes);
     for (int w = 0; w < kConsumers; ++w)
-      for (int half = 0; half < 2; ++half) {
-        tma_load_4d(smem + kOffK + w * kWGBytes + half * kWGHalf, &k_map, &bar.kv, half * 64,
-                    kvh, k0 + w * kRowsWG, b);
-        tma_load_4d(smem + kOffV + w * kWGBytes + half * kWGHalf, &v_map, &bar.kv, half * 64,
-                    kvh, k0 + w * kRowsWG, b);
+      for (int half = 0; half < L::kHalves; ++half) {
+        tma_load_4d(smem + L::kOffK + w * L::kWGBytes + half * L::kWGHalf, &k_map, &bar.kv,
+                    half * 64, kvh, k0 + w * kRowsWG, b);
+        tma_load_4d(smem + L::kOffV + w * L::kWGBytes + half * L::kWGHalf, &v_map, &bar.kv,
+                    half * 64, kvh, k0 + w * kRowsWG, b);
       }
   }
   __syncthreads();
@@ -157,13 +166,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   const int kw0 = k0 + wg * kRowsWG;          // first key of this warpgroup
   const int key0 = kw0 + warp * 16 + rq;      // this thread's keys: key0 and key0 + 8
   const float c = scale * kLog2e;
-  unsigned char* k_tile = smem + kOffK + wg * kWGBytes;
-  unsigned char* v_tile = smem + kOffV + wg * kWGBytes;
+  unsigned char* k_tile = smem + L::kOffK + wg * L::kWGBytes;
+  unsigned char* v_tile = smem + L::kOffV + wg * L::kWGBytes;
   const uint32_t k_addr = smem_u32(k_tile), v_addr = smem_u32(v_tile);
 
-  float dk[64], dv[64], st[32], dp[32];
+  constexpr int kAcc = kD / 2;  // dK and dV accumulators a thread, each
+  float dk[kAcc], dv[kAcc], st[32], dp[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.0f;
+  for (int i = 0; i < kAcc; ++i) dk[i] = dv[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.0f;
   mbar_wait(&bar.kv, 0);
@@ -177,8 +187,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
       mbar_arrive(&bar.empty[s]);
       continue;
     }
-    const uint32_t q_addr = smem_u32(smem + kOffQ + s * kQBytes);
-    const uint32_t do_addr = smem_u32(smem + kOffDO + s * kQBytes);
+    const uint32_t q_addr = smem_u32(smem + L::kOffQ + s * L::kQBytes);
+    const uint32_t do_addr = smem_u32(smem + L::kOffDO + s * L::kQBytes);
     const float* lse_s = rows + s * 2 * kBlockM;
     const float* dl = lse_s + kBlockM;
 
@@ -186,13 +196,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n64k16_ss(st, kmajor_desc(k_addr + (kk / 4) * kWGHalf + (kk % 4) * 32),
-                         kmajor_desc(q_addr + (kk / 4) * kQHalf + (kk % 4) * 32), kk);
+      wgmma_m64n64k16_ss(st, kmajor_desc(k_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
+                         kmajor_desc(q_addr + (kk / 4) * L::kQHalf + (kk % 4) * 32), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n64k16_ss(dp, kmajor_desc(v_addr + (kk / 4) * kWGHalf + (kk % 4) * 32),
-                         kmajor_desc(do_addr + (kk / 4) * kQHalf + (kk % 4) * 32), kk);
+      wgmma_m64n64k16_ss(dp, kmajor_desc(v_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
+                         kmajor_desc(do_addr + (kk / 4) * L::kQHalf + (kk % 4) * 32), kk);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
@@ -232,12 +242,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk)
-      wgmma_m64n128k16_rs_tb(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                             mnmajor_desc(do_addr + kk * 2048, kQHalf), 1);
+      wgmma_rs_tb(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  mnmajor_desc(do_addr + kk * 2048, L::kQHalf));
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk)
-      wgmma_m64n128k16_rs_tb(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                             mnmajor_desc(q_addr + kk * 2048, kQHalf), 1);
+      wgmma_rs_tb(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                  mnmajor_desc(q_addr + kk * 2048, L::kQHalf));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -251,10 +261,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   // rows (read by no one else, and done with), in the swizzled layout the
   // TMA store reads.
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < kAcc; i += 2) {
     const int r = warp * 16 + rq + ((i / 2) % 2) * 8;
     const int col = (i / 4) * 8 + cq;
-    const int off = (col / 64) * kWGHalf + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16) +
+    const int off = (col / 64) * L::kWGHalf + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16) +
                     (col % 8) * 2;
     *reinterpret_cast<uint32_t*>(k_tile + off) = pack_bf16(dk[i] * scale, dk[i + 1] * scale);
     *reinterpret_cast<uint32_t*>(v_tile + off) = pack_bf16(dv[i], dv[i + 1]);
@@ -262,12 +272,33 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   fence_proxy_async();
   named_barrier_sync<128>(1 + wg);
   if (tid == 0) {
-    for (int half = 0; half < 2; ++half) {
-      tma_store_4d(&dk_map, k_tile + half * kWGHalf, half * 64, kvh, kw0, b);
-      tma_store_4d(&dv_map, v_tile + half * kWGHalf, half * 64, kvh, kw0, b);
+    for (int half = 0; half < L::kHalves; ++half) {
+      tma_store_4d(&dk_map, k_tile + half * L::kWGHalf, half * 64, kvh, kw0, b);
+      tma_store_4d(&dv_map, v_tile + half * L::kWGHalf, half * 64, kvh, kw0, b);
     }
     tma_store_wait();
   }
+}
+
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+                   int KVH, int Sq, int Sk, int causal, float scale, void* stream) {
+  constexpr int kSmemBytes = Smem<kD>::kBytes;
+  CUtensorMap q_map, k_map, v_map, do_map, dk_map, dv_map;
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, kD, kBlockM);
+  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, kD, kBlockM);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&dk_map, dk, B, Sk, KVH, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&dv_map, dv, B, Sk, KVH, kD, kRowsWG);
+  if (err == cudaSuccess) err = allow_smem(flash_dkv_kernel<kD>, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((Sk + kBlockN - 1) / kBlockN) * B * KVH;
+  flash_dkv_kernel<kD><<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, do_map, dk_map, dv_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B, H, KVH, Sq, Sk, causal, scale);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -276,19 +307,13 @@ extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int B,
                             int H, int KVH, int Sq, int Sk, int D, int causal, float scale,
                             void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap q_map, k_map, v_map, do_map, dk_map, dv_map;
-  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kBlockM);
-  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, D, kBlockM);
-  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&dk_map, dk, B, Sk, KVH, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&dv_map, dv, B, Sk, KVH, D, kRowsWG);
-  if (err == cudaSuccess) err = allow_smem(flash_dkv_kernel, kSmemBytes);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64)
+    err = launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, causal, scale,
+                     stream);
+  if (D == 128)
+    err = launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, causal, scale,
+                      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((Sk + kBlockN - 1) / kBlockN) * B * KVH;
-  flash_dkv_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, do_map, dk_map, dv_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), B, H, KVH, Sq, Sk, causal, scale);
   TK_RETURN_LAST_ERROR();
 }

@@ -11,10 +11,12 @@
 // before its product; every sum is fp32.
 //
 // Bound on the H100: operations. At llama-400m (bs 8, seq 2048, 8 heads x
-// 128, causal) it does 3 products, 103.1 GFLOP.
+// 128, causal) it does 3 products, 103.1 GFLOP; at bert-base (bs 16, seq
+// 512, 12 heads x 64, non-causal) 19.3 GFLOP against 63.7 MB.
 //
 // Design (sm_90a, the building blocks in hopper.cuh): the dK/dV kernel's,
-// mirrored. One block per (128 Q rows, q head, batch), two warpgroups of 64
+// mirrored. One kernel for each head_dim, 64 and 128 (the template
+// argument kD). One block per (128 Q rows, q head, batch), two warpgroups of 64
 // Q rows each, and no producer warpgroup (a third warpgroup caps ptxas at
 // 168 registers a thread, which spills; flash_dkv.cu).
 // - Thread 0 loads the block's Q and dO tiles once by TMA, then streams the
@@ -26,9 +28,10 @@
 //   K-major from the swizzled tiles, in two commit groups. P = exp2(S *
 //   scale * log2 e - lse * log2 e) and dS = P (dP - delta) run on the
 //   accumulator registers; dS is packed to bf16 A fragments as it is made.
-// - dQ += dS K is wgmma m64n128k16 with A = dS from registers and B the same
-//   K tile read MN-major. dQ (64 fp32 a thread) stays in registers beside S
-//   and dP (64 each), with no spill.
+// - dQ += dS K is wgmma m64n128k16 (m64n64k16 at head_dim 64) with A = dS
+//   from registers and B the same K tile read MN-major. dQ (64 fp32 a
+//   thread, 32 at head_dim 64) stays in registers beside S and dP (64
+//   each), with no spill.
 // - Tiles of 128 keys halve the barrier waits and double the work per wait
 //   against 64-key tiles (which fit a 3-stage ring, and ran 13% slower;
 //   PERF.md), at the price of a diagonal tile whose first warpgroup sees a
@@ -39,7 +42,8 @@
 //   blocks with the most K tiles launch first.
 // - Epilogue: dQ * scale to bf16, staged in the warpgroup's own Q rows and
 //   written by TMA store (rows past the end are not written).
-// Shared memory 193 KB: one block an SM. GQA by index (K/V at head
+// Shared memory 193 KB at head_dim 128 (97 KB at 64, which keeps the
+// 2-stage ring): one block an SM. GQA by index (K/V at head
 // h / groups), no copies of K/V.
 
 #include "hopper.cuh"
@@ -48,7 +52,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kD = 128;                        // head_dim
 constexpr int kRowsWG = 64;                    // Q rows of a consumer warpgroup
 constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kBlockM = kRowsWG * kConsumers;  // Q rows of a block
@@ -56,33 +59,40 @@ constexpr int kBlockN = 128;                   // keys of a K/V tile
 constexpr int kStages = 2;                     // as many as fit beside Q and dO
 constexpr int kThreads = 128 * kConsumers;
 
-constexpr int kWGBytes = kRowsWG * kD * 2;     // 16 KB: two halves of [64][64]
-constexpr int kWGHalf = kWGBytes / 2;
-constexpr int kKVBytes = kBlockN * kD * 2;     // 32 KB: two halves of [128][64]
-constexpr int kKVHalf = kKVBytes / 2;
-constexpr int kOffQ = 0;
-constexpr int kOffDO = kOffQ + kConsumers * kWGBytes;
-constexpr int kOffK = kOffDO + kConsumers * kWGBytes;
-constexpr int kOffV = kOffK + kStages * kKVBytes;
-constexpr int kOffBar = kOffV + kStages * kKVBytes;
-
 struct Barriers {
   uint64_t q;                // the Q and dO tiles have landed
   uint64_t full[kStages];    // the K and V tiles of the stage have landed
   uint64_t empty[kStages];   // every consumer thread is done with the stage
 };
 
-constexpr int kSmemBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+// Shared memory of the head_dim-kD kernel: tiles of kD / 64 halves of 64
+// columns.
+template <int kD>
+struct Smem {
+  static constexpr int kHalves = kD / 64;
+  static constexpr int kWGBytes = kRowsWG * kD * 2;   // a warpgroup's Q or dO rows
+  static constexpr int kWGHalf = kRowsWG * 64 * 2;    // 8 KB: [64][64]
+  static constexpr int kKVBytes = kBlockN * kD * 2;   // a K or V tile
+  static constexpr int kKVHalf = kBlockN * 64 * 2;    // 16 KB: [128][64]
+  static constexpr int kOffQ = 0;
+  static constexpr int kOffDO = kOffQ + kConsumers * kWGBytes;
+  static constexpr int kOffK = kOffDO + kConsumers * kWGBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+  static constexpr int kBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+};
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
     const float* __restrict__ delta, int B, int H, int KVH, int Sq, int Sk, int causal,
     float scale) {
+  using L = Smem<kD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  Barriers& bar = *reinterpret_cast<Barriers*>(smem + kOffBar);
+  Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kOffBar);
 
   const int n_q = (Sq + kBlockM - 1) / kBlockM;
   const int bh = static_cast<int>(blockIdx.x) % (B * H);
@@ -101,12 +111,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
   auto load_kv = [&](int j) {
     const int s = j % kStages;
     if (j >= kStages) mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
-    mbar_arrive_expect_tx(&bar.full[s], 2 * kKVBytes);
-    for (int half = 0; half < 2; ++half) {
-      tma_load_4d(smem + kOffK + s * kKVBytes + half * kKVHalf, k_tma, &bar.full[s], half * 64,
-                  kvh, j * kBlockN, b);
-      tma_load_4d(smem + kOffV + s * kKVBytes + half * kKVHalf, v_tma, &bar.full[s], half * 64,
-                  kvh, j * kBlockN, b);
+    mbar_arrive_expect_tx(&bar.full[s], 2 * L::kKVBytes);
+    for (int half = 0; half < L::kHalves; ++half) {
+      tma_load_4d(smem + L::kOffK + s * L::kKVBytes + half * L::kKVHalf, k_tma, &bar.full[s],
+                  half * 64, kvh, j * kBlockN, b);
+      tma_load_4d(smem + L::kOffV + s * L::kKVBytes + half * L::kKVHalf, v_tma, &bar.full[s],
+                  half * 64, kvh, j * kBlockN, b);
     }
   };
   if (threadIdx.x == 0) {
@@ -116,13 +126,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
       mbar_init(&bar.empty[s], kThreads);
     }
     fence_barrier_init();
-    mbar_arrive_expect_tx(&bar.q, 2 * kConsumers * kWGBytes);
+    mbar_arrive_expect_tx(&bar.q, 2 * kConsumers * L::kWGBytes);
     for (int w = 0; w < kConsumers; ++w)
-      for (int half = 0; half < 2; ++half) {
-        tma_load_4d(smem + kOffQ + w * kWGBytes + half * kWGHalf, &q_map, &bar.q, half * 64, h,
-                    q0 + w * kRowsWG, b);
-        tma_load_4d(smem + kOffDO + w * kWGBytes + half * kWGHalf, &do_map, &bar.q, half * 64,
-                    h, q0 + w * kRowsWG, b);
+      for (int half = 0; half < L::kHalves; ++half) {
+        tma_load_4d(smem + L::kOffQ + w * L::kWGBytes + half * L::kWGHalf, &q_map, &bar.q,
+                    half * 64, h, q0 + w * kRowsWG, b);
+        tma_load_4d(smem + L::kOffDO + w * L::kWGBytes + half * L::kWGHalf, &do_map, &bar.q,
+                    half * 64, h, q0 + w * kRowsWG, b);
       }
     load_kv(0);
   }
@@ -135,9 +145,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
   const int qw0 = q0 + wg * kRowsWG;        // first row of this warpgroup
   const int row0 = qw0 + warp * 16 + rq;    // this thread's rows: row0 and row0 + 8
   const float c = scale * kLog2e;
-  unsigned char* q_tile = smem + kOffQ + wg * kWGBytes;
+  unsigned char* q_tile = smem + L::kOffQ + wg * L::kWGBytes;
   const uint32_t q_addr = smem_u32(q_tile);
-  const uint32_t do_addr = smem_u32(smem + kOffDO + wg * kWGBytes);
+  const uint32_t do_addr = smem_u32(smem + L::kOffDO + wg * L::kWGBytes);
 
   // lse * log2 e and delta of the thread's two rows, 0 for rows past the
   // end (their Q and dO rows are zero, so their dS is 0, and their dQ is
@@ -149,9 +159,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
   const float dl1 = row0 + 8 < Sq ? delta[rows + row0 + 8] : 0.0f;
 
   constexpr int kAcc = kBlockN / 2;  // S and dP accumulators a thread
-  float dq[64], st[kAcc], dp[kAcc];
+  constexpr int kDQ = kD / 2;        // dQ accumulators a thread
+  float dq[kDQ], st[kAcc], dp[kAcc];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dq[i] = 0.0f;
+  for (int i = 0; i < kDQ; ++i) dq[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) st[i] = dp[i] = 0.0f;
   mbar_wait(&bar.q, 0);
@@ -165,20 +176,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
       mbar_arrive(&bar.empty[s]);
       continue;
     }
-    const uint32_t k_addr = smem_u32(smem + kOffK + s * kKVBytes);
-    const uint32_t v_addr = smem_u32(smem + kOffV + s * kKVBytes);
+    const uint32_t k_addr = smem_u32(smem + L::kOffK + s * L::kKVBytes);
+    const uint32_t v_addr = smem_u32(smem + L::kOffV + s * L::kKVBytes);
 
     // S = Q K^T and dP = dO V^T over head_dim, two commit groups.
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(st, kmajor_desc(q_addr + (kk / 4) * kWGHalf + (kk % 4) * 32),
-                          kmajor_desc(k_addr + (kk / 4) * kKVHalf + (kk % 4) * 32), kk);
+      wgmma_m64n128k16_ss(st, kmajor_desc(q_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
+                          kmajor_desc(k_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(dp, kmajor_desc(do_addr + (kk / 4) * kWGHalf + (kk % 4) * 32),
-                          kmajor_desc(v_addr + (kk / 4) * kKVHalf + (kk % 4) * 32), kk);
+      wgmma_m64n128k16_ss(dp, kmajor_desc(do_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
+                          kmajor_desc(v_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
@@ -211,8 +222,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
-      wgmma_m64n128k16_rs_tb(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                             mnmajor_desc(k_addr + kk * 2048, kKVHalf), 1);
+      wgmma_rs_tb(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                  mnmajor_desc(k_addr + kk * 2048, L::kKVHalf));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -223,20 +234,40 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
   // Epilogue: dQ * scale as bf16 into this warpgroup's own Q rows (read by
   // no one else, and done with), in the swizzled layout the TMA store reads.
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < kDQ; i += 2) {
     const int r = warp * 16 + rq + ((i / 2) % 2) * 8;
     const int col = (i / 4) * 8 + cq;
-    const int off = (col / 64) * kWGHalf + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16) +
+    const int off = (col / 64) * L::kWGHalf + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16) +
                     (col % 8) * 2;
     *reinterpret_cast<uint32_t*>(q_tile + off) = pack_bf16(dq[i] * scale, dq[i + 1] * scale);
   }
   fence_proxy_async();
   named_barrier_sync<128>(1 + wg);
   if (tid == 0) {
-    for (int half = 0; half < 2; ++half)
-      tma_store_4d(&dq_map, q_tile + half * kWGHalf, half * 64, h, qw0, b);
+    for (int half = 0; half < L::kHalves; ++half)
+      tma_store_4d(&dq_map, q_tile + half * L::kWGHalf, half * 64, h, qw0, b);
     tma_store_wait();
   }
+}
+
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int B, int H, int KVH, int Sq,
+                   int Sk, int causal, float scale, void* stream) {
+  constexpr int kSmemBytes = Smem<kD>::kBytes;
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map;
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&dq_map, dq, B, Sq, H, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, kD, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, kD, kBlockN);
+  if (err == cudaSuccess) err = allow_smem(flash_dq_kernel<kD>, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
+  flash_dq_kernel<kD><<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), B, H, KVH, Sq, Sk, causal, scale);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -244,18 +275,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
 extern "C" int tk_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int B, int H, int KVH,
                            int Sq, int Sk, int D, int causal, float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap q_map, k_map, v_map, do_map, dq_map;
-  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&dq_map, dq, B, Sq, H, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, kBlockN);
-  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, kBlockN);
-  if (err == cudaSuccess) err = allow_smem(flash_dq_kernel, kSmemBytes);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64)
+    err = launch<64>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, causal, scale, stream);
+  if (D == 128)
+    err = launch<128>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, causal, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
-  flash_dq_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), B, H, KVH, Sq, Sk, causal, scale);
   TK_RETURN_LAST_ERROR();
 }

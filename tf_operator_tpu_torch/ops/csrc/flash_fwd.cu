@@ -8,11 +8,13 @@
 // and an fp32 accumulator carry across K/V tiles; P is cast to bf16 before
 // P V; o = acc / l (l == 0 -> 1) and lse = scale * m + log l.
 //
-// Bound on the H100: operations. At llama-400m (bs 8, seq 2048, 8 heads x
-// 128, causal) it does 68.75 GFLOP against 135 MB of traffic.
+// Bound on the H100: operations at llama-400m (bs 8, seq 2048, 8 heads x
+// 128, causal: 68.75 GFLOP against 135 MB of traffic); bytes at bert-base
+// (bs 16, seq 512, 12 heads x 64, non-causal: 12.9 GFLOP, 50.7 MB).
 //
-// Design (sm_90a, the building blocks in hopper.cuh). One block per (128
-// Q rows, q head, batch): two warpgroups of 64 Q rows each.
+// Design (sm_90a, the building blocks in hopper.cuh). One kernel for each
+// head_dim, 64 and 128 (the template argument kD). One block per (128 Q
+// rows, q head, batch): two warpgroups of 64 Q rows each.
 // - Thread 0 loads the block's Q tile once and streams the K and V tiles
 //   (128 keys each) by TMA into a 3-stage ring, one tile ahead of its use,
 //   each stage completing on an mbarrier; the warpgroups free a stage
@@ -23,14 +25,15 @@
 //   exp2 runs with scale * log2(e) folded into one multiply. The O
 //   accumulator (64 fp32 a thread) is rescaled in registers. O += P V is
 //   wgmma with P from registers (the S accumulator cast to bf16 pairs is
-//   the A fragment) and V MN-major from shared memory.
+//   the A fragment) and V MN-major from shared memory: m64n128k16 at
+//   head_dim 128, m64n64k16 (32 fp32 a thread) at 64.
 // - Causal: K tiles past the block's last row are never loaded, only tiles
 //   that cross the diagonal (or the ragged end of the keys) are masked, and
 //   the blocks with the most tiles launch first.
 // - Epilogue: o = acc / l in registers, to bf16, staged in the warpgroup's
 //   own Q rows and written by TMA store (rows past the end are not
 //   written); lse from registers.
-// Shared memory 225 KB: one block an SM. GQA by index (K/V at head
+// Shared memory 225 KB at head_dim 128 (113 KB at 64): one block an SM. GQA by index (K/V at head
 // h / groups), no copies of K/V. With 128 Q rows a block, every block
 // streams its K/V tiles from L2 (570 MB a call at llama-400m); that stream,
 // not the products or the softmax, sets most of the time (PERF.md).
@@ -41,21 +44,12 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kD = 128;                       // head_dim
 constexpr int kRowsWG = 64;                   // Q rows of a consumer warpgroup
 constexpr int kConsumers = 2;                 // consumer warpgroups
 constexpr int kBlockM = kRowsWG * kConsumers; // Q rows of a block
 constexpr int kBlockN = 128;                  // keys of a K/V tile
 constexpr int kStages = 3;
 constexpr int kThreads = 128 * kConsumers;
-
-constexpr int kQWGBytes = kRowsWG * kD * 2;   // 16 KB: two halves of [64][64]
-constexpr int kKVBytes = kBlockN * kD * 2;    // 32 KB: two halves of [128][64]
-constexpr int kKVHalf = kKVBytes / 2;
-constexpr int kOffQ = 0;
-constexpr int kOffK = kOffQ + kConsumers * kQWGBytes;
-constexpr int kOffV = kOffK + kStages * kKVBytes;
-constexpr int kOffBar = kOffV + kStages * kKVBytes;
 
 struct Barriers {
   uint64_t q;                // the Q tile has landed
@@ -64,7 +58,21 @@ struct Barriers {
   uint64_t empty[kStages];   // every consumer thread is done with the stage
 };
 
-constexpr int kSmemBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+// Shared memory of the head_dim-kD kernel: tiles of kD / 64 halves of 64
+// columns.
+template <int kD>
+struct Smem {
+  static constexpr int kHalves = kD / 64;
+  static constexpr int kQWGBytes = kRowsWG * kD * 2;   // a warpgroup's Q rows
+  static constexpr int kQHalf = kRowsWG * 64 * 2;      // 8 KB: [64][64]
+  static constexpr int kKVBytes = kBlockN * kD * 2;    // a K or V tile
+  static constexpr int kKVHalf = kBlockN * 64 * 2;     // 16 KB: [128][64]
+  static constexpr int kOffQ = 0;
+  static constexpr int kOffK = kOffQ + kConsumers * kQWGBytes;
+  static constexpr int kOffV = kOffK + kStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kStages * kKVBytes;
+  static constexpr int kBytes = kOffBar + sizeof(Barriers) + 1024;  // + alignment slack
+};
 
 // One tile's step of the online softmax on the S accumulator (two rows a
 // thread: row0 and row0 + 8): mask (only where `masked`), the new row max
@@ -117,11 +125,12 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float& m0, float& 
 // acc *= alpha per row, and P (the softmaxed S accumulator) as bf16 A
 // fragments: keys 16kk..16kk+15 are accumulator columns 8(2kk) and
 // 8(2kk+1), i.e. sc[8kk .. 8kk+7].
-__device__ __forceinline__ void rescale_and_pack(float (&acc)[64], const float (&sc)[64],
+template <int kAcc>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[kAcc], const float (&sc)[64],
                                                  uint32_t (&pa)[32], float alpha0,
                                                  float alpha1) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 4) {
+  for (int i = 0; i < kAcc; i += 4) {
     acc[i] *= alpha0;
     acc[i + 1] *= alpha0;
     acc[i + 2] *= alpha1;
@@ -131,13 +140,15 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[64], const float (
   for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
     float* __restrict__ lse, int B, int H, int KVH, int Sq, int Sk, int causal, float scale) {
+  using L = Smem<kD>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  Barriers& bar = *reinterpret_cast<Barriers*>(smem + kOffBar);
+  Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kOffBar);
 
   const int n_q = (Sq + kBlockM - 1) / kBlockM;
   const int bh = static_cast<int>(blockIdx.x) % (B * H);
@@ -156,14 +167,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   auto load_kv = [&](int j) {
     const int s = j % kStages;
     if (j >= kStages) mbar_wait(&bar.empty[s], (j / kStages - 1) & 1);
-    mbar_arrive_expect_tx(&bar.k[s], kKVBytes);
-    for (int half = 0; half < 2; ++half)
-      tma_load_4d(smem + kOffK + s * kKVBytes + half * kKVHalf, k_tma, &bar.k[s], half * 64,
-                  kvh, j * kBlockN, b);
-    mbar_arrive_expect_tx(&bar.v[s], kKVBytes);
-    for (int half = 0; half < 2; ++half)
-      tma_load_4d(smem + kOffV + s * kKVBytes + half * kKVHalf, v_tma, &bar.v[s], half * 64,
-                  kvh, j * kBlockN, b);
+    mbar_arrive_expect_tx(&bar.k[s], L::kKVBytes);
+    for (int half = 0; half < L::kHalves; ++half)
+      tma_load_4d(smem + L::kOffK + s * L::kKVBytes + half * L::kKVHalf, k_tma, &bar.k[s],
+                  half * 64, kvh, j * kBlockN, b);
+    mbar_arrive_expect_tx(&bar.v[s], L::kKVBytes);
+    for (int half = 0; half < L::kHalves; ++half)
+      tma_load_4d(smem + L::kOffV + s * L::kKVBytes + half * L::kKVHalf, v_tma, &bar.v[s],
+                  half * 64, kvh, j * kBlockN, b);
   };
   if (threadIdx.x == 0) {
     mbar_init(&bar.q, 1);
@@ -173,10 +184,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
       mbar_init(&bar.empty[s], kThreads);
     }
     fence_barrier_init();
-    mbar_arrive_expect_tx(&bar.q, kConsumers * kQWGBytes);
+    mbar_arrive_expect_tx(&bar.q, kConsumers * L::kQWGBytes);
     for (int w = 0; w < kConsumers; ++w)
-      for (int half = 0; half < 2; ++half)
-        tma_load_4d(smem + kOffQ + w * kQWGBytes + half * (kQWGBytes / 2), &q_map, &bar.q,
+      for (int half = 0; half < L::kHalves; ++half)
+        tma_load_4d(smem + L::kOffQ + w * L::kQWGBytes + half * L::kQHalf, &q_map, &bar.q,
                     half * 64, h, q0 + w * kRowsWG, b);
     load_kv(0);
   }
@@ -188,12 +199,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   const int rq = lane / 4, cq = 2 * (lane % 4);
   const int row0 = q0 + wg * kRowsWG + warp * 16 + rq;  // rows row0 and row0 + 8
   const float c = scale * kLog2e;
-  unsigned char* q_tile = smem + kOffQ + wg * kQWGBytes;
+  unsigned char* q_tile = smem + L::kOffQ + wg * L::kQWGBytes;
   const uint32_t q_addr = smem_u32(q_tile);
 
-  float acc[64], sc[64];
+  constexpr int kAcc = kD / 2;  // O accumulators a thread
+  float acc[kAcc], sc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = sc[i] = 0.0f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
   mbar_wait(&bar.q, 0);
 
@@ -201,14 +215,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     if (threadIdx.x == 0 && j + 1 < k_end) load_kv(j + 1);
     const int s = j % kStages;
     const uint32_t phase = (j / kStages) & 1;
-    const uint32_t k_addr = smem_u32(smem + kOffK + s * kKVBytes);
-    const uint32_t v_addr = smem_u32(smem + kOffV + s * kKVBytes);
+    const uint32_t k_addr = smem_u32(smem + L::kOffK + s * L::kKVBytes);
+    const uint32_t v_addr = smem_u32(smem + L::kOffV + s * L::kKVBytes);
     mbar_wait(&bar.k[s], phase);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(sc, kmajor_desc(q_addr + (kk / 4) * (kQWGBytes / 2) + (kk % 4) * 32),
-                          kmajor_desc(k_addr + (kk / 4) * kKVHalf + (kk % 4) * 32), kk);
+      wgmma_m64n128k16_ss(sc, kmajor_desc(q_addr + (kk / 4) * L::kQHalf + (kk % 4) * 32),
+                          kmajor_desc(k_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -224,8 +238,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
-      wgmma_m64n128k16_rs_tb(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                             mnmajor_desc(v_addr + kk * 2048, kKVHalf), 1);
+      wgmma_rs_tb(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  mnmajor_desc(v_addr + kk * 2048, L::kKVHalf));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -242,22 +256,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0);
   const float inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < kAcc; i += 2) {
     const int hi = (i / 2) % 2;
     const int r = warp * 16 + rq + hi * 8;
     const int col = (i / 4) * 8 + cq;
     const float inv = hi ? inv1 : inv0;
     const int chunk = ((col % 64) / 8) ^ (r % 8);
-    *reinterpret_cast<uint32_t*>(q_tile + (col / 64) * (kQWGBytes / 2) + r * 128 +
+    *reinterpret_cast<uint32_t*>(q_tile + (col / 64) * L::kQHalf + r * 128 +
                                  chunk * 16 + (col % 8) * 2) =
         pack_bf16(acc[i] * inv, acc[i + 1] * inv);
   }
   fence_proxy_async();
   named_barrier_sync<128>(1 + wg);
   if (tid == 0) {
-    for (int half = 0; half < 2; ++half)
-      tma_store_4d(&o_map, q_tile + half * (kQWGBytes / 2), half * 64, h,
-                   q0 + wg * kRowsWG, b);
+    for (int half = 0; half < L::kHalves; ++half)
+      tma_store_4d(&o_map, q_tile + half * L::kQHalf, half * 64, h, q0 + wg * kRowsWG, b);
     tma_store_wait();
   }
   if (lane % 4 == 0) {
@@ -267,21 +280,31 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   }
 }
 
+template <int kD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                   int H, int KVH, int Sq, int Sk, int causal, float scale, void* stream) {
+  constexpr int kSmemBytes = Smem<kD>::kBytes;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, kD, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, kD, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, kD, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&o_map, o, B, Sq, H, kD, kRowsWG);
+  if (err == cudaSuccess) err = allow_smem(flash_fwd_kernel<kD>, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
+  flash_fwd_kernel<kD><<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, o_map, static_cast<float*>(lse), B, H, KVH, Sq, Sk, causal, scale);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int H, int KVH, int Sq, int Sk, int D, int causal,
                             float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap q_map, k_map, v_map, o_map;
-  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, kBlockN);
-  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, kBlockN);
-  if (err == cudaSuccess) err = make_bshd_map(&o_map, o, B, Sq, H, D, kRowsWG);
-  if (err == cudaSuccess) err = allow_smem(flash_fwd_kernel, kSmemBytes);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 64) err = launch<64>(q, k, v, o, lse, B, H, KVH, Sq, Sk, causal, scale, stream);
+  if (D == 128) err = launch<128>(q, k, v, o, lse, B, H, KVH, Sq, Sk, causal, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
-  flash_fwd_kernel<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      q_map, k_map, v_map, o_map, static_cast<float*>(lse), B, H, KVH, Sq, Sk, causal, scale);
   TK_RETURN_LAST_ERROR();
 }

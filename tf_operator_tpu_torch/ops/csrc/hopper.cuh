@@ -8,12 +8,13 @@
 //   needs no -lcuda); 4-byte cp.async for short rows, completing on the same
 //   kind of barrier;
 // - wgmma: the shared-memory matrix descriptor of the 128-byte swizzle and
-//   the three products the kernels use (m64n64k16 and m64n128k16 with both
-//   operands from shared memory, m64n128k16 with A from registers and B
-//   MN-major), with fence, commit and wait.
+//   the four products the kernels use (m64n64k16 and m64n128k16 with both
+//   operands from shared memory, m64n64k16 and m64n128k16 with A from
+//   registers and B MN-major), with fence, commit and wait.
 //
 // Layout convention. Every bf16 tile of head_dim 128 lives in shared memory
-// as two "halves" of 64 columns, each [rows][64] with 128-byte rows in the
+// as two "halves" of 64 columns (a tile of head_dim 64 is one such half),
+// each [rows][64] with 128-byte rows in the
 // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), which is
 // what a TMA box of 64 x rows with CU_TENSOR_MAP_SWIZZLE_128B writes and
 // what wgmma's swizzle mode 1 reads. Each half starts on a 1024-byte
@@ -23,7 +24,8 @@
 //     half (the next half after four steps); SBO = 1024 (8 rows of 128 B).
 //   MN-major (the contiguous columns are the product's N, the rows its K):
 //     a k16 step is 16 rows, 2048 bytes; SBO = 1024 (8 rows of K);
-//     LBO = the distance between the two halves (N 0..63 and 64..127).
+//     LBO = the distance between the two halves (N 0..63 and 64..127),
+//     unread by a product of N = 64.
 #pragma once
 
 #include "common.cuh"
@@ -305,6 +307,40 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], uint32_t 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: the same with N = 64 (one half
+// of B, so the descriptor's LBO is not read).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// The register-A, MN-major-B product whose N is the accumulator's width:
+// the head dimension of a flash kernel's P V, dS K, P^T dO or dS^T Q (32
+// accumulators a thread at head_dim 64, 64 at 128).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, desc_b, 1);
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, desc_b, 1);
 }
 
 // ------------------------------------------------------------ host side

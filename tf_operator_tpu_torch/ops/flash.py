@@ -16,9 +16,11 @@ saves the forward's (o, lse) (the JAX package tags them ``flash_o``/
 ``flash_lse``) names them ``"flash"`` on its tape (``ops/remat.py``): the
 block's replay then takes them back and launches no second forward.
 
-A CUDA tensor goes through the kernels (bf16, head_dim 128, fixed tiles):
-``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ) and
-``ops/csrc/flash_dkv.cu`` (dK/dV); a CPU tensor through the plain versions,
+A CUDA tensor goes through the kernels (bf16, head_dim 64 or 128, fixed
+tiles): ``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ)
+and ``ops/csrc/flash_dkv.cu`` (dK/dV), each built as one kernel for each
+head_dim, whose launches count apart (``kernel_name``: ``flash_fwd`` at
+128, ``flash_fwd_d64`` at 64); a CPU tensor through the plain versions,
 which emulate the kernels' blockwise online-softmax recurrence with
 ``block_q``/``block_k`` blocks that step down to a divisor of the sequence
 length (``_block_size``). :func:`flash_work` counts the least bytes and
@@ -35,7 +37,15 @@ from .roofline import Work
 # Large-but-finite mask value: exp(x - x) on a fully-masked row must not
 # produce inf - inf = nan.
 MASK_VALUE = -1e30
-KERNEL_HEAD_DIM = 128
+# The head dims the kernels are built for; any other is refused on the card.
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def kernel_name(kernel: str, head_dim: int) -> str:
+    """The launch counter of ``kernel`` ("flash_fwd", "flash_dq" or
+    "flash_dkv") at ``head_dim``: the kernel's own name at 128, with
+    ``_d64`` at 64."""
+    return kernel if head_dim == 128 else f"{kernel}_d{head_dim}"
 
 
 def _block_size(want: int, total: int) -> int:
@@ -217,8 +227,8 @@ def _check_kernel_qkv(q, k, v, causal):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash kernels take bfloat16; {name} is {t.dtype}")
-    if q.shape[-1] != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash kernels take head_dim {KERNEL_HEAD_DIM}, "
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, "
                          f"not {q.shape[-1]}")
     if q.shape[0] != k.shape[0] or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
@@ -256,7 +266,7 @@ def flash_forward_cuda(q, k, v, causal=True):
         b, h, kvh, s_q, s_k, d, int(causal), 1.0 / d**0.5, build.stream_ptr(q.device),
     )
     build.check(lib, code, "flash forward kernel")
-    build.count("flash_fwd")
+    build.count(kernel_name("flash_fwd", d))
     return o, lse
 
 
@@ -272,7 +282,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, causal=True):
         1.0 / d**0.5, build.stream_ptr(q.device),
     )
     build.check(lib, code, "flash dQ kernel")
-    build.count("flash_dq")
+    build.count(kernel_name("flash_dq", d))
     return dq
 
 
@@ -288,7 +298,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, causal=True):
         int(causal), 1.0 / d**0.5, build.stream_ptr(q.device),
     )
     build.check(lib, code, "flash dK/dV kernel")
-    build.count("flash_dkv")
+    build.count(kernel_name("flash_dkv", d))
     return dk, dv
 
 

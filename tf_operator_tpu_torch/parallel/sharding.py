@@ -20,7 +20,8 @@ An MoE layer's fp32 router gets a ``fully_shard`` group of its own, since
 FSDP2 needs one original dtype in a group and the block's other
 parameters are in ``param_dtype``; its experts shard over fsdp with the
 block. Experts over ``ep`` or ``tp`` (the JAX package's
-``moe_expert_axes``, an all-to-all dispatch) are refused until ported.
+``moe_expert_axes``, an all-to-all dispatch) are refused until ported, as
+is a BERT model, whose sharded step is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from torch.distributed.tensor.parallel import (
     parallelize_module,
 )
 
+from ..models.bert import BertConfig
 from .mesh import mesh_axes
 
 DATA_AXES = ("slice", "dp", "fsdp", "ep")
@@ -100,8 +102,12 @@ def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
 
 
 def check_shardable(config, axes: dict) -> None:
-    """Refuse a layout the port cannot shard ``config`` over yet: an MoE
-    model with ``tp`` or ``ep`` above 1."""
+    """Refuse a layout the port cannot shard ``config`` over yet: a BERT
+    model on any mesh, an MoE model with ``tp`` or ``ep`` above 1."""
+    if isinstance(config, BertConfig):
+        raise NotImplementedError(
+            f"BERT over mesh {axes}: BERT over several cards is not ported yet "
+            "(ROADMAP Queue 1 item 3b, multi-card BERT)")
     if config.n_experts and any(axes.get(a, 1) > 1 for a in ("tp", "ep")):
         raise NotImplementedError(
             f"MoE over mesh {axes}: experts over ep or tp are not ported yet "
@@ -110,9 +116,9 @@ def check_shardable(config, axes: dict) -> None:
 
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Shard ``model`` (a Llama, before its storage exists: on the meta
-    device) over ``mesh`` in place: tensor-parallel plans on each block over
-    ``tp`` when it is above 1, then FSDP2 on each MoE router, each block and
-    the root."""
+    device; a Bert is refused) over ``mesh`` in place: tensor-parallel
+    plans on each block over ``tp`` when it is above 1, then FSDP2 on each
+    MoE router, each block and the root."""
     check_shardable(model.config, mesh_axes(mesh))
     if "tp" in mesh.mesh_dim_names and mesh["tp"].size() > 1:
         for block in model.layers:

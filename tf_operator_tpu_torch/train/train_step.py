@@ -13,6 +13,9 @@ defaults, because that is where an optimizer port drifts:
 - AdamW with eps 1e-8 and bias correction, weight decay on every leaf
   (norm scales included), moments kept in the parameter dtype.
 
+:func:`adamw` is the same AdamW as ``optax.adamw`` alone: a constant
+learning rate, no clip (the BERT example's optimizer).
+
 Parameters and moments are updated in place (the JAX step donates its
 state buffers for the same reason: no second copy of the model). On a
 sharded model each rank updates its own shards: AdamW is elementwise, so
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -89,21 +93,24 @@ class OptState:
 @dataclass
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, ...))``
-    on a list of parameters."""
+    on a list of parameters; with ``decay_steps`` None the learning rate is
+    constant, and with ``grad_clip`` None nothing is clipped."""
 
     learning_rate: float = 3e-4
     warmup_steps: int = 100
-    decay_steps: int = 10_000
+    decay_steps: Optional[int] = 10_000
     weight_decay: float = 0.1
     b1: float = 0.9
     b2: float = 0.95
-    grad_clip: float = 1.0
+    grad_clip: Optional[float] = 1.0
     eps: float = 1e-8
 
     def schedule(self, count: int) -> float:
         """optax.warmup_cosine_decay_schedule(0.0, lr, warmup, decay) at
-        ``count`` updates done (end value 0)."""
+        ``count`` updates done (end value 0), or the constant rate."""
         peak, warmup = self.learning_rate, self.warmup_steps
+        if self.decay_steps is None:
+            return peak
         if count < warmup:
             return peak * count / warmup
         span = self.decay_steps - warmup
@@ -123,11 +130,13 @@ class AdamW:
         """One update, in place on ``params`` (their local shards, for
         DTensors) and the state's moments."""
         grads = list(grads)
-        norm = global_norm(grads)
+        if self.grad_clip is not None:
+            # optax: t if norm < clip else (t / norm) * clip, with no epsilon.
+            norm = global_norm(grads)
+            factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
         params, grads = [_local(p) for p in params], [_local(g) for g in grads]
-        # optax: t if norm < clip else (t / norm) * clip, with no epsilon.
-        factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
-        grads = torch._foreach_mul(grads, factor)
+        if self.grad_clip is not None:
+            grads = torch._foreach_mul(grads, factor)
 
         mu, nu = state.mu, state.nu
         torch._foreach_mul_(mu, self.b1)
@@ -159,6 +168,14 @@ def make_optimizer(
                  weight_decay, b1, b2, grad_clip)
 
 
+def adamw(learning_rate: float, weight_decay: float = 1e-4, b1: float = 0.9,
+          b2: float = 0.999, eps: float = 1e-8) -> AdamW:
+    """``optax.adamw(learning_rate, b1, b2, eps, weight_decay)``: constant
+    learning rate, no clip."""
+    return AdamW(learning_rate, warmup_steps=0, decay_steps=None, weight_decay=weight_decay,
+                 b1=b1, b2=b2, grad_clip=None, eps=eps)
+
+
 @dataclass
 class TrainState:
     step: int
@@ -187,19 +204,29 @@ def init_sharded_train_state(model: nn.Module, optimizer: AdamW, mesh, device,
     return init_train_state(model, optimizer)
 
 
+def _on_device(batch, device):
+    """A batch array (numpy or tensor) on ``device``, integer ids as int64
+    and a boolean mask as it is; a tuple of them element by element."""
+    if isinstance(batch, tuple):
+        return tuple(_on_device(b, device) for b in batch)
+    t = torch.as_tensor(batch)
+    return t.to(device=device, dtype=torch.bool if t.dtype == torch.bool else torch.long)
+
+
 def make_train_step(optimizer: AdamW, loss=loss_fn):
     """``step(state, batch) -> (state, loss)``: forward, backward and one
-    optimizer update. ``batch`` is this rank's [b, s+1] token array (numpy
-    or tensor); a host batch moves to the model's device, and a batch
-    already there (``data.DevicePrefetch``) is only cast to int64 in place
-    of a copy. On a sharded model the loss returned is the mean over all
-    ranks: the global batch's loss."""
+    optimizer update of ``loss(model, batch)``. ``batch`` is this rank's
+    [b, s+1] token array (numpy or tensor), or a tuple of arrays (the BERT
+    example's ids, labels and mask); a host batch moves to the model's
+    device, and a batch already there (``data.DevicePrefetch``) is only
+    cast to int64 in place of a copy. On a sharded model the loss returned
+    is the mean over all ranks: the global batch's loss."""
 
     def step(state: TrainState, batch):
         model = state.model
         params = list(model.parameters())
         device = _local(params[0]).device
-        tokens = torch.as_tensor(batch).to(device=device, dtype=torch.long)
+        tokens = _on_device(batch, device)
         for p in params:
             p.grad = None
         value = loss(model, tokens)
