@@ -114,9 +114,23 @@ Phases (any failure raises and the script exits non-zero):
       ln(30522), launches a step flash_fwd_d64 24 (the forward replayed
       under "dots"), flash_dq_d64 12, flash_dkv_d64 12 and no other; step
       time, tokens/s, MFU and peak memory; then bert_train.main for 4
-      steps at bs 16, every printed loss finite.
+      steps at bs 16, every printed loss finite;
+  (m) the multi-card layer on one card, a one-rank NCCL group: moe-125m
+      through the entry point under JAX_MESH_SPEC {"ep": 1} (its experts
+      DTensors over ep, the dispatch and the combine through the
+      all-to-all, counted: 6 a layer and step under its remat policy) for
+      phase k's 8 steps, its losses phase k's einsum run's (LOSS_TOL), at
+      phase k's launches; bert-base's data-parallel step on the bench
+      path (gradients and loss averaged over the group), phase l's
+      batches, losses (LOSS_TOL) and d=64 launches;
+  (n) with 2 or more cards, scripts/multicard_smoke.py on all of them
+      (llama2-7b at its default fsdp=N, llama-400m over fsdp=N and
+      fsdp x tp=2, moe-125m over ep=N, fsdp=N and ep=2 x fsdp, bert-base
+      data parallel, a DCP save and restore of the ep=N MoE state, each
+      against a one-card run; its last 200 lines printed); with one card
+      it prints that it did not run and why.
 
-Phases e-l each reset the launch counters just before their runs and read
+Phases e-m each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
 per-kernel results (launches from phase e, from phase k's einsum run for
 the entries named "...[moe-125m]", timed at its shapes, and from phase l's
@@ -697,11 +711,7 @@ def phase_h(build, peak, main_losses: list, main_grads: dict) -> dict:
     and phase f's "dots" gradients."""
     import torch.distributed as dist
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
-                            rank=0, device_id=torch.device("cuda", 0))
+    one_rank_group()
     os.environ["JAX_MESH_SPEC"] = '{"fsdp": 1}'
     try:
         out = train_run(build, peak, "h", [*MAIN_ARGS, "--steps", "4"])
@@ -957,7 +967,7 @@ def phase_k(build, peak, flash, rope_mod) -> dict:
     routing 8 steps, gather routing 3), einsum against gather and card
     against CPU at 2 layers, one-rank FSDP2, and the kernels at its shapes.
     Returns the kernels' results at moe-125m's shapes with the launches of
-    its main run."""
+    its main run, and that run's losses."""
     import torch.distributed as dist
 
     from tf_operator_tpu_torch.models import llama
@@ -1004,11 +1014,7 @@ def phase_k(build, peak, flash, rope_mod) -> dict:
     del grads_e, grads_g
     moe_parity(batch[:1])
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
-                            rank=0, device_id=torch.device("cuda", 0))
+    one_rank_group()
     os.environ["JAX_MESH_SPEC"] = '{"fsdp": 1}'
     try:
         sharded = train_run(build, peak, "k", [*MOE_ARGS, "--steps", "3"])
@@ -1031,7 +1037,7 @@ def phase_k(build, peak, flash, rope_mod) -> dict:
         res["name"] = f"{name}[moe-125m]"
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]
-    return results
+    return results, main["losses"]
 
 
 # Phase (l): bert-base at full width and depth through the JAX bench's
@@ -1048,7 +1054,8 @@ def phase_l(build, peak) -> dict:
     trained through the bench path (step time, tokens/s, MFU, peak memory,
     launches of the head_dim-64 kernels: 24 forward, 12 dQ and 12 dK/dV a
     step, the flash forward replayed under "dots"), and the bert_train
-    entry point for 4 steps. Returns the training run's launches."""
+    entry point for 4 steps. Returns the training run's losses and
+    launches, and its batches."""
     import contextlib
     import io
 
@@ -1056,6 +1063,41 @@ def phase_l(build, peak) -> dict:
 
     from tf_operator_tpu_torch.models import bert
     from tf_operator_tpu_torch.train import bert_train
+
+    cfg = bert.CONFIGS["bert-base"]
+    rng = np.random.default_rng(0)
+    parity_tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, BERT_SEQ + 1))).long()
+    card_cpu_parity("l", bert.Bert, dataclasses.replace(cfg, n_layers=2), parity_tokens)
+
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ + 1),
+                                             dtype=np.int32)).cuda() for _ in range(BERT_STEPS)]
+    run = bert_window(build, peak, "l", batches)
+    if abs(run["losses"][0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {run['losses'][0]} is far from ln(vocab)")
+
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = bert_train.main(["--steps", "4", "--batch", str(BERT_BATCH), "--log-every", "1"])
+    text = out.getvalue()
+    steps = {int(k): float(v) for k, v, _ in BERT_LINE.findall(text)}
+    log(f"[l] bert_train.main: exit {code} in {time.perf_counter() - t1:.1f} s; "
+        + "; ".join(text.strip().splitlines()))
+    if code != 0 or sorted(steps) != [0, 1, 2, 3] or not all(
+            math.isfinite(x) for x in steps.values()):
+        raise AssertionError(f"bert_train printed {text}")
+    run["batches"] = batches
+    return run
+
+
+def bert_window(build, peak, label: str, batches: list, replica_group=None) -> dict:
+    """bert-base through the bench path on ``batches`` from seed 0's
+    weights (data parallel over ``replica_group`` when given): 1 warm-up
+    step and a window of the rest, with the launch counters and the peak
+    device memory reset just before and read just after; launches a step
+    flash_fwd_d64 24 (the forward replayed under "dots"), flash_dq_d64 12,
+    flash_dkv_d64 12 and no other. Returns losses, launches and times."""
+    from tf_operator_tpu_torch.models import bert
     from tf_operator_tpu_torch.train.train_step import (
         init_train_state,
         make_optimizer,
@@ -1063,19 +1105,14 @@ def phase_l(build, peak) -> dict:
     )
 
     cfg = bert.CONFIGS["bert-base"]
-    rng = np.random.default_rng(0)
-    parity_tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, BERT_SEQ + 1))).long()
-    card_cpu_parity("l", bert.Bert, dataclasses.replace(cfg, n_layers=2), parity_tokens)
-
     gc.collect()
     torch.cuda.empty_cache()
     model = bert.Bert(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     optimizer = make_optimizer(warmup_steps=10, decay_steps=1000)
     state = init_train_state(model, optimizer)
-    step_fn = make_train_step(optimizer)
-    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ + 1),
-                                             dtype=np.int32)).cuda() for _ in range(BERT_STEPS)]
-    losses = torch.empty(BERT_STEPS, dtype=torch.float32, device="cuda")
+    step_fn = make_train_step(optimizer, replica_group=replica_group)
+    steps = len(batches)
+    losses = torch.empty(steps, dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
@@ -1089,17 +1126,17 @@ def phase_l(build, peak) -> dict:
     window = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    step_s = window / (BERT_STEPS - 1)
-    tokens_per_s = BERT_BATCH * BERT_SEQ / step_s
+    step_s = window / (steps - 1)
+    tokens_per_s = batches[0].shape[0] * BERT_SEQ / step_s
     mfu = tokens_per_s * cfg.flops_per_token(BERT_SEQ) / (peak.bf16_tflops * 1e12)
-    per_step = {k: n / BERT_STEPS for k, n in launches.items()}
-    log(f"[l] bert-base ({cfg.param_count():,} parameters), bs {BERT_BATCH}, seq {BERT_SEQ}, "
-        f"remat {cfg.remat_policy}: losses {losses}")
-    log(f"[l] window of {BERT_STEPS - 1} steps in {window:.4f} s: step {step_s:.4f} s, tokens/s "
-        f"{tokens_per_s:.1f}, MFU {mfu:.4f} (peak {peak.bf16_tflops} TFLOP/s, "
+    per_step = {k: n / steps for k, n in launches.items()}
+    log(f"[{label}] bert-base ({cfg.param_count():,} parameters), bs {batches[0].shape[0]}, "
+        f"seq {BERT_SEQ}, remat {cfg.remat_policy}: losses {losses}")
+    log(f"[{label}] window of {steps - 1} steps in {window:.4f} s: step {step_s:.4f} s, "
+        f"tokens/s {tokens_per_s:.1f}, MFU {mfu:.4f} (peak {peak.bf16_tflops} TFLOP/s, "
         f"{cfg.flops_per_token(BERT_SEQ):.4e} FLOP a token); peak device memory "
         f"{peak_gib:.3f} GiB")
-    log(f"[l] launches in {BERT_STEPS} steps {launches}, per step {per_step}")
+    log(f"[{label}] launches in {steps} steps {launches}, per step {per_step}")
     want = {name: 0 for name in launches}
     want.update(flash_fwd_d64=2 * cfg.n_layers, flash_dq_d64=cfg.n_layers,
                 flash_dkv_d64=cfg.n_layers)
@@ -1107,24 +1144,81 @@ def phase_l(build, peak) -> dict:
         raise AssertionError(f"launches per step {per_step}, expected {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss {losses}")
-    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
-        raise AssertionError(f"first loss {losses[0]} is far from ln(vocab)")
-    del model, state, step_fn, batches
+    del model, state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches, "step_s": step_s}
 
-    out = io.StringIO()
-    t1 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        code = bert_train.main(["--steps", "4", "--batch", str(BERT_BATCH), "--log-every", "1"])
-    text = out.getvalue()
-    steps = {int(k): float(v) for k, v, _ in BERT_LINE.findall(text)}
-    log(f"[l] bert_train.main: exit {code} in {time.perf_counter() - t1:.1f} s; "
-        + "; ".join(text.strip().splitlines()))
-    if code != 0 or sorted(steps) != [0, 1, 2, 3] or not all(
-            math.isfinite(x) for x in steps.values()):
-        raise AssertionError(f"bert_train printed {text}")
-    return launches
+
+def one_rank_group():
+    """A one-rank NCCL group in this process, on card 0."""
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+
+
+def phase_m(build, peak, moe_losses: list, bert_run: dict) -> None:
+    """The multi-card layer on one card, a one-rank NCCL group: moe-125m
+    through the entry point under JAX_MESH_SPEC {"ep": 1} (the experts
+    DTensors over ep, the dispatch and the combine through the
+    all-to-all), phase k's 8 losses; bert-base's data-parallel step on the
+    bench path (the gradients and the loss averaged over the group),
+    phase l's losses."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models import bert
+    from tf_operator_tpu_torch.parallel import experts
+    from tf_operator_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from tf_operator_tpu_torch.parallel.sharding import data_parallel_group
+
+    one_rank_group()
+    os.environ["JAX_MESH_SPEC"] = '{"ep": 1}'
+    try:
+        experts.reset_counts()
+        moe = train_run(build, peak, "m", [*MOE_ARGS, "--steps", "8"])
+        a2a = experts.COUNTS["all_to_all"]
+        group, size = data_parallel_group(bert.CONFIGS["bert-base"],
+                                          make_mesh(MeshSpec({"dp": 1}), "cuda"))
+        dp = bert_window(build, peak, "m", bert_run["batches"], replica_group=group)
+    finally:
+        del os.environ["JAX_MESH_SPEC"]
+        dist.destroy_process_group()
+    cfg = moe["config"]
+    want = len(moe["losses"]) * cfg.n_layers * 6  # forward, replay, backward: 2 each
+    log(f"[m] moe-125m on mesh {moe['mesh']}: all-to-alls {a2a} in {len(moe['losses'])} steps "
+        f"({a2a / len(moe['losses']):.0f} a step; {want} expected)")
+    if moe["mesh"] != {"fsdp": 1, "ep": 1} or a2a != want:
+        raise AssertionError(f"mesh {moe['mesh']}, {a2a} all-to-alls")
+    check_losses("m", "expert axis ep=1 against phase k's einsum run", moe["losses"], moe_losses)
+    log(f"[m] bert-base data parallel over a group of {size}")
+    check_losses("m", "data-parallel bert-base against phase l", dp["losses"],
+                 bert_run["losses"])
+
+
+def phase_n() -> None:
+    """scripts/multicard_smoke.py on every visible card, when there are 2
+    or more."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[n] phase n did not run: {n} card visible, and the multi-card rows "
+            "(scripts/multicard_smoke.py) need 2 or more")
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "multicard_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=1500)
+    for line in proc.stdout.splitlines()[-200:]:
+        log(line)
+    log(f"[n] scripts/multicard_smoke.py on {n} cards: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"phase n failed on {n} cards")
 
 
 STEP_LINE = re.compile(r"^\[llama\] step (\d+) loss (\S+) tokens/sec ([\d,]+)", re.M)
@@ -1266,14 +1360,16 @@ def main() -> int:
     del dots_grads
     phase_i(build, peak)
     phase_j()
-    moe = phase_k(build, peak, flash, rope_mod)
-    bert_launches = phase_l(build, peak)
+    moe, moe_losses = phase_k(build, peak, flash, rope_mod)
+    bert_run = phase_l(build, peak)
+    phase_m(build, peak, moe_losses, bert_run)
+    phase_n()
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]
     for name, res in d64.items():
-        res["launches"] = bert_launches[name]
-        res["launches_per_step"] = bert_launches[name] / BERT_STEPS
+        res["launches"] = bert_run["launches"][name]
+        res["launches_per_step"] = bert_run["launches"][name] / BERT_STEPS
 
     log(smi_line())
     log(json.dumps({"kernels": list(results.values()) + list(moe.values())

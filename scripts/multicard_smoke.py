@@ -1,0 +1,639 @@
+"""The port's main paths on every visible card: phase n of ``chip_smoke.py``.
+
+    python3 scripts/multicard_smoke.py [--out FILE]
+    python3 scripts/multicard_smoke.py --device cpu --procs 4   # rehearsal
+
+Needs N >= 2 cards and exits non-zero with fewer. One process per card over
+NCCL, started with the PyTorchJob c10d env (``MASTER_ADDR``/``MASTER_PORT``/
+``WORLD_SIZE``/``RANK``, ``LOCAL_RANK``: each rank sets its card before
+the group is made) and a ``JAX_MESH_SPEC`` per row. First, in this
+process, the one-card references on card 0 at the same global batch and
+seed; then, in the N processes, the rows:
+
+- llama2-7b, the model ``llama_train`` picks from 4 cards, on its default
+  mesh (fsdp=N), ``--batch 8N`` (32 at 4 cards), seq 2048, 3 steps: the
+  first loss within 0.5 of what the init gives (:func:`first_loss`:
+  ln(32000) plus half the logits' variance, 11.19); tokens/s per card,
+  MFU, and the peak
+  memory of the fullest card against the reckoned bytes of
+  ``llama_train.LLAMA2_7B_MIN_WORLD``'s comment (29.5e9 at 4 cards);
+- llama-400m over fsdp=N and over fsdp=N/2 x tp=2, global batch 8N, seq
+  2048, 4 steps from a seeded token file: each loss within
+  ``chip_smoke.LOSS_TOL`` of the one-card run's;
+- moe-125m over ep=N, over fsdp=N (the expert axis is fsdp: 8 experts
+  divide it) and over ep=2 x fsdp=N/2, global batch 8N: the first loss at
+  ``LOSS_TOL``, the later ones at ``PARITY_TOL["loss"]``, with the share
+  of (token, rank) routes of the first forward whose expert differs from
+  the one-card run's; the all-to-alls a step; the ep=N run, and
+  llama-400m's fsdp=N one, run again, traced by the entry point's
+  ``TPU_PROFILE_*`` window (steps 1-2): per card the compute kernels'
+  busy ms, the idle share and the NCCL kernels' ms a step (all-to-all
+  among them), and one all-to-all of the dispatch's shape timed alone;
+- bert-base data parallel over dp=N on the JAX bench's BERT path
+  (``train_step.loss_fn`` with no mask: the d=64 flash kernels), global
+  batch 16N, seq 512, 4 steps: the losses at ``LOSS_TOL``;
+- moe-125m over ep=N through DCP: 2 steps, a save, a restore into a new
+  setup byte-equal to the saved state (every rank's shards and moments),
+  and 2 steps resumed from it with the ep=N run's losses of steps 2-3.
+
+Every row prints tokens/s per card, the step time, the peak memory of the
+fullest card and the kernels' launches a step per card. The last line is
+a JSON object of every row, ``{"ok": ...}``; with ``--out`` it is also
+written to FILE. The rehearsal runs the same rows on the CPU over gloo
+with fp32 llama-tiny, moe-tiny and bert-tiny (seq 32, 2 rows a process).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import glob
+import json
+import math
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402  (the repo root, for its tolerances and helpers)
+
+# The reckoned bytes one card of a 4-card llama2-7b run at --batch 32 holds
+# (scripts/train_memory.py's fit; llama_train.LLAMA2_7B_MIN_WORLD).
+LLAMA2_7B_RECKONED = {4: 29.5e9, 8: 15.6e9, 2: 57.4e9}
+STEPS = 4
+WORKER_TIMEOUT = 900.0  # the workers' whole run
+COLLECTIVE_TIMEOUT = 300  # a collective that waits longer aborts its process
+NCCL_A2A = ("SendRecv", "AllToAll")
+
+
+@dataclasses.dataclass
+class Plan:
+    """The models and sizes of a run: the card's, or the CPU rehearsal's."""
+
+    device: str
+    procs: int
+    llama: str = "llama-400m"
+    moe: str = "moe-125m"
+    bert: str = "bert-base"
+    seq: int = 2048
+    bert_seq: int = 512
+    rows: int = 8  # a card's rows of llama and moe
+    bert_rows: int = 16
+
+    @classmethod
+    def for_device(cls, device: str, procs: int) -> "Plan":
+        if device == "cuda":
+            return cls("cuda", procs)
+        return cls("cpu", procs, "llama-tiny", "moe-tiny", "bert-tiny", 32, 32, 2, 2)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fp32_on_cpu(plan: Plan) -> None:
+    """The rehearsal's models in fp32, where one process and N agree to
+    the last bits; the card runs bf16."""
+    if plan.device != "cpu":
+        return
+    from tf_operator_tpu_torch.models import bert, llama
+
+    for table, name in ((llama.CONFIGS, plan.llama), (llama.CONFIGS, plan.moe),
+                        (bert.CONFIGS, plan.bert)):
+        table[name] = dataclasses.replace(table[name], dtype=torch.float32,
+                                          param_dtype=torch.float32)
+
+
+def llama_args(plan: Plan, model: str, tokens: str, steps: int = STEPS) -> list:
+    return ["--model", model, "--batch", str(plan.rows * plan.procs), "--seq", str(plan.seq),
+            "--log-every", "100", "--warmup", "1", "--steps", str(steps), "--data", tokens,
+            "--data-dtype", "uint16", "--device", plan.device]
+
+
+def reset(plan: Plan) -> None:
+    from tf_operator_tpu_torch.ops import build
+    from tf_operator_tpu_torch.parallel import experts
+
+    gc.collect()
+    build.reset_launches()
+    experts.reset_counts()
+    if plan.device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def counters(plan: Plan, steps: int) -> dict:
+    """This process's launches and all-to-alls a step, and its peak memory."""
+    from tf_operator_tpu_torch.ops import build
+    from tf_operator_tpu_torch.parallel import experts
+
+    launches = {k: n / steps for k, n in build.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated() if plan.device == "cuda" else 0
+    return {"launches": launches, "all_to_all": experts.COUNTS["all_to_all"] / steps,
+            "peak_bytes": peak}
+
+
+def route_hooks(model, routes: dict) -> None:
+    """Keep each layer's top-k expert ids of its first forward."""
+    for i, layer in enumerate(model.layers):
+        if layer.moe:
+            k = layer.feed_forward.cfg.experts_per_token
+
+            def keep(module, args, out, i=i, k=k):
+                routes.setdefault(i, torch.topk(out, k)[1].cpu())
+            layer.feed_forward.router.register_forward_hook(keep)
+
+
+def train_llama(plan: Plan, argv: list, routes: dict = None) -> dict:
+    """One llama_train run; its losses, window and counters."""
+    from tf_operator_tpu_torch.parallel.sharding import data_coords
+    from tf_operator_tpu_torch.train import llama_train
+
+    reset(plan)
+    args = llama_train.parse_args(argv)
+    s = llama_train.setup(args)
+    if routes is not None:
+        route_hooks(s.state.model, routes)
+    data_rank = data_coords(s.mesh)[0] if s.mesh is not None else 0
+    out = llama_train.run(args, s)
+    steps = len(out["losses"])
+    step_s = out["window_seconds"] / max(out["window_steps"], 1)
+    return {"model": args.model, "losses": out["losses"], "mesh": out["mesh"],
+            "step_s": step_s, "tokens_per_s": out["tokens_per_step"] / step_s,
+            "flops_per_token": out["config"].flops_per_token(args.seq),
+            "data_rank": data_rank, **counters(plan, steps)}
+
+
+def bert_batches(plan: Plan, vocab: int) -> list:
+    """The global batches of the BERT rows, [16N, seq+1] from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n = plan.bert_rows * plan.procs
+    return [rng.integers(0, vocab, (n, plan.bert_seq + 1), dtype=np.int32)
+            for _ in range(STEPS)]
+
+
+def train_bert(plan: Plan, group=None, rank: int = 0, world: int = 1) -> dict:
+    """bert-base on the bench path (make_train_step with loss_fn, no mask),
+    this process's rows of the global batches; data parallel over
+    ``group`` when given."""
+    from tf_operator_tpu_torch.models import bert
+    from tf_operator_tpu_torch.train.train_step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    reset(plan)
+    cfg = bert.CONFIGS[plan.bert]
+    device = torch.device(plan.device, torch.cuda.current_device()) \
+        if plan.device == "cuda" else torch.device("cpu")
+    model = bert.Bert(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    optimizer = make_optimizer(warmup_steps=1, decay_steps=1000)
+    state = init_train_state(model, optimizer)
+    step_fn = make_train_step(optimizer, replica_group=group)
+    rows = plan.bert_rows * plan.procs // world
+    batches = [torch.from_numpy(b[rank * rows:(rank + 1) * rows]).to(device)
+               for b in bert_batches(plan, cfg.vocab_size)]
+    losses = torch.empty(STEPS, dtype=torch.float32, device=device)
+    for i, batch in enumerate(batches):
+        state, loss = step_fn(state, batch)
+        losses[i].copy_(loss)
+        if i == 0:
+            losses[0].item()
+            t0 = time.perf_counter()
+    losses = losses.tolist()
+    step_s = (time.perf_counter() - t0) / (STEPS - 1)
+    tokens = plan.bert_rows * plan.procs * plan.bert_seq
+    out = {"model": plan.bert, "losses": losses, "step_s": step_s,
+           "tokens_per_s": tokens / step_s, "flops_per_token": cfg.flops_per_token(plan.bert_seq),
+           **counters(plan, STEPS)}
+    del model, state, step_fn, batches
+    return out
+
+
+# ------------------------------------------------------------- the parent
+def references(plan: Plan, tokens: str) -> dict:
+    """The one-card runs, in this process on card 0 (no process group)."""
+    refs = {"llama": train_llama(plan, llama_args(plan, plan.llama, tokens))}
+    refs["moe_routes"] = {}
+    refs["moe"] = train_llama(plan, llama_args(plan, plan.moe, tokens), refs["moe_routes"])
+    refs["bert"] = train_bert(plan)
+    for name in ("llama", "moe", "bert"):
+        r = refs[name]
+        log(f"[n] one card: {r['model']} losses {r['losses']}, step {r['step_s']:.4f} s, "
+            f"tokens/s {r['tokens_per_s']:.1f}, peak {r['peak_bytes'] / 1e9:.3f} GB, "
+            f"launches a step {r['launches']}")
+    return refs
+
+
+def spawn(plan: Plan, tmp: str, tokens: str) -> list:
+    """The N worker processes, their output in ``tmp``; returns their
+    results (rank 0's list of rows)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(plan.procs):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(plan.procs), "RANK": str(rank), "LOCAL_RANK": str(rank)}
+        if plan.device == "cpu":
+            env["OMP_NUM_THREADS"] = "1"
+        logs.append(open(os.path.join(tmp, f"worker{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", "--device", plan.device,
+             "--procs", str(plan.procs), "--tmp", tmp, "--tokens", tokens],
+            cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + WORKER_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for rank, p in enumerate(procs):
+        with open(os.path.join(tmp, f"worker{rank}.log")) as f:
+            text = f.read()
+        if rank == 0 or p.returncode != 0:
+            for line in text.splitlines()[-60 if p.returncode else -400:]:
+                log(f"[n] rank {rank}| {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} exited {p.returncode}")
+    return cs.read_json(os.path.join(tmp, "rows.json"))
+
+
+def interleave(parts: list, rows: int) -> torch.Tensor:
+    """Per-rank [rows * groups, ...] tensors as the one-card batch holds
+    them: batch row j from rank j mod N."""
+    per_rank = [p.reshape(rows, -1, *p.shape[1:]) for p in parts]
+    return torch.stack(per_rank, 1).flatten(0, 2)
+
+
+def first_loss(cfg) -> float:
+    """The expected first loss of a model from ``Llama.init_weights``:
+    its head's normal(0.02) rows on unit-RMS hidden states give logits of
+    variance 0.02**2 * dim, and a cross entropy of ln(vocab) plus half
+    that (11.19 at llama2-7b's dim 4096, 10.58 at llama-400m's 1024)."""
+    return math.log(cfg.vocab_size) + 0.5 * 0.02**2 * cfg.dim
+
+
+def flips(got: dict, want: dict) -> list:
+    """Per layer, the share of (token, rank) routes whose expert differs."""
+    return [(got[i] != want[i]).float().mean().item() for i in sorted(want)]
+
+
+def check_row(plan: Plan, row: dict, refs: dict) -> list:
+    """The row's failures (empty when it passed); prints its line."""
+    fails = []
+    ranks = row["ranks"]
+    peak = max(r["peak_bytes"] for r in ranks)
+    per_card = row["tokens_per_s"] / plan.procs
+    mfu = 0.0
+    if plan.device == "cuda":
+        mfu = per_card * row["flops_per_token"] / (peak_tflops() * 1e12)
+    losses = row["losses"]
+    what = f"{row['name']} mesh {row.get('mesh')}"
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f"{what}: non-finite loss {losses}")
+    ref = refs.get(row.get("ref"))
+    worst = None
+    if ref is not None:
+        tol = cs.LOSS_TOL
+        worst = max(cs.rel(a, b) for a, b in zip(losses, ref["losses"]))
+        if row.get("ref") == "moe":
+            first = cs.rel(losses[0], ref["losses"][0])
+            later = max(cs.rel(a, b) for a, b in zip(losses[1:], ref["losses"][1:]))
+            ok = first <= cs.LOSS_TOL and later <= cs.PARITY_TOL["loss"]
+            tol = f"{cs.LOSS_TOL} first, {cs.PARITY_TOL['loss']} later"
+        else:
+            ok = worst <= cs.LOSS_TOL
+        if len(losses) != len(ref["losses"]) or not ok:
+            fails.append(f"{what}: losses {losses} against one card's {ref['losses']}")
+        log(f"[n] {what}: losses {losses} against one card {ref['losses']}: worst rel "
+            f"{worst:.3e} (tol {tol})")
+    if "routes" in row:
+        log(f"[n] {what}: share of first-forward routes whose expert differs from one card's, "
+            f"per layer {row['routes']}")
+    if "first_loss_target" in row:
+        off = abs(losses[0] - row["first_loss_target"])
+        log(f"[n] {what}: first loss {losses[0]:.4f}, {off:.4f} from the init's expected "
+            f"{row['first_loss_target']:.4f} (ln(vocab) plus half the logits' variance)")
+        if off > 0.5:
+            fails.append(f"{what}: first loss {losses[0]} is far from "
+                         f"{row['first_loss_target']}")
+    launches = ranks[0]["launches"]
+    a2a = [r["all_to_all"] for r in ranks]
+    log(f"[n] {what}: step {row['step_s']:.4f} s, tokens/s {row['tokens_per_s']:.1f} "
+        f"({per_card:.1f} a card), MFU {mfu:.4f}; peak memory of the fullest card "
+        f"{peak / 1e9:.3f} GB; launches a step a card {launches}; all-to-alls a step a "
+        f"card {a2a}")
+    if row.get("a2a_expected") and not all(n > 0 for n in a2a):
+        fails.append(f"{what}: no all-to-all ran")
+    if plan.device == "cuda" and row.get("kernels") and not launches:
+        fails.append(f"{what}: no kernel launched")
+    if "reckoned_bytes" in row:
+        log(f"[n] {what}: peak {peak / 1e9:.3f} GB a card against the reckoned "
+            f"{row['reckoned_bytes']} bytes")
+    if "restore_equal" in row and not row["dcp_ok"]:
+        fails.append(f"{what}: restore {row['restore']}, byte-equal {row['restore_equal']}, "
+                     f"losses {losses} against {row['resumed_against']}")
+    for t in row.get("trace", []):
+        log(f"[n] {what}: traced steps 1-2, a card: window {t['window_ms']:.2f} ms a step, "
+            f"compute kernels busy {t['busy_ms']:.2f} ms (idle share {t['idle_share']}); "
+            f"NCCL kernels ms a step {t['nccl_ms']}")
+    if "a2a_ms" in row:
+        shares = [round(m / t["window_ms"], 4) if t["window_ms"] else None
+                  for m, t in zip(row["a2a_ms"], row["trace"])]
+        log(f"[n] {what}: all-to-all device ms a step a card {row['a2a_ms']} ({shares} of "
+            f"the traced step); one all-to-all of the dispatch's shape alone, ms a card "
+            f"{row['a2a_alone_ms']}")
+    row.update(per_card_tokens_per_s=per_card, mfu=mfu, peak_bytes=peak, worst_rel=worst)
+    return fails
+
+
+def peak_tflops() -> float:
+    """The card's dense bf16 peak, from its name (``device.peak_for``)."""
+    from tf_operator_tpu_torch.device import peak_for
+
+    return peak_for(torch.cuda.get_device_name(0))[0].bf16_tflops
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="multicard_smoke")
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--procs", type=int, default=0, help="CPU rehearsal: processes")
+    parser.add_argument("--out", default="")
+    parser.add_argument("--worker", action="store_true")
+    parser.add_argument("--tmp", default="")
+    parser.add_argument("--tokens", default="")
+    args = parser.parse_args(argv)
+    if args.worker:
+        return worker(Plan.for_device(args.device, args.procs), args.tmp, args.tokens)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("multicard_smoke: CUDA is not available", file=sys.stderr)
+            return 1
+        procs = torch.cuda.device_count()
+        if procs < 2:
+            print(f"multicard_smoke: {procs} card visible, 2 or more needed", file=sys.stderr)
+            return 1
+        from tf_operator_tpu_torch.ops import build
+
+        t0 = time.perf_counter()
+        build.load()
+        log(f"[n] {cs.smi_line()}; {procs} cards; kernels built and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        procs = args.procs
+    plan = Plan.for_device(args.device, procs)
+    fp32_on_cpu(plan)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        from tf_operator_tpu_torch.models import llama
+
+        tokens = cs.seeded_tokens(tmp, vocab=llama.CONFIGS[plan.llama].vocab_size)
+        refs = references(plan, tokens)
+        moe_routes = refs.pop("moe_routes")
+        gc.collect()
+        if plan.device == "cuda":
+            torch.cuda.empty_cache()
+        rows = spawn(plan, tmp, tokens)
+        routes = torch.load(os.path.join(tmp, "routes.pt"))
+    fails = []
+    for row in rows:
+        if row["name"] in routes:
+            row["routes"] = flips(routes[row["name"]], moe_routes)
+        fails += check_row(plan, row, refs)
+    for f in fails:
+        log(f"[n] FAIL {f}")
+    summary = {"ok": not fails, "cards": procs, "seconds": time.perf_counter() - t_start,
+               "references": refs, "rows": rows}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    log(json.dumps({"ok": not fails, "cards": procs, "rows": [
+        {k: row.get(k) for k in ("name", "mesh", "losses", "step_s", "per_card_tokens_per_s",
+                                 "mfu", "peak_bytes", "worst_rel", "routes", "a2a_ms",
+                                 "a2a_alone_ms", "restore_equal")} for row in rows]}))
+    return 0 if not fails else 1
+
+
+# ------------------------------------------------------------- the workers
+def worker(plan: Plan, tmp: str, tokens: str) -> int:
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.parallel.mesh import mesh_axes
+    from tf_operator_tpu_torch.parallel.sharding import data_parallel_group
+    from tf_operator_tpu_torch.runtime import gpu_init
+
+    fp32_on_cpu(plan)
+    gpu_init.initialize(device=plan.device, timeout_seconds=COLLECTIVE_TIMEOUT)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    rows, routes = [], {}
+
+    def gather(row: dict, name: str, **extra) -> None:
+        """Every rank's counters beside rank 0's row."""
+        mine = {k: row[k] for k in ("launches", "all_to_all", "peak_bytes")}
+        ranks = [None] * n
+        dist.all_gather_object(ranks, mine)
+        row.update(name=name, ranks=ranks, **extra)
+        rows.append(row)
+        log(f"[n] rank {rank}: {name} done: losses {row['losses']}")
+
+    def layout(name: str, spec, argv: list, ref=None, moe=False, **extra) -> dict:
+        if spec is None:
+            os.environ.pop("JAX_MESH_SPEC", None)
+        else:
+            os.environ["JAX_MESH_SPEC"] = json.dumps(spec)
+        mine = {} if moe else None
+        row = train_llama(plan, argv, mine)
+        if moe:
+            # Every data rank's routes of its rows, in the one-card batch's
+            # row order: the token file deals row j to data rank j mod N.
+            all_routes = [None] * n
+            dist.all_gather_object(all_routes, (row["data_rank"], mine))
+            ordered = [r for _, r in sorted(all_routes, key=lambda x: x[0])]
+            routes[name] = {i: interleave([r[i] for r in ordered], plan.rows)
+                            for i in ordered[0]}
+        gather(row, name, ref=ref, kernels=True, a2a_expected=moe and "tp" not in (spec or {}),
+               **extra)
+        return row
+
+    half = n // 2
+    seven_b = ["--batch", str(plan.rows * n), "--seq", str(plan.seq), "--log-every", "100",
+               "--warmup", "1", "--steps", "3", "--device", plan.device]
+    row = layout("llama2-7b default", None, seven_b)
+    row["first_loss_target"] = first_loss(llama.CONFIGS[row["model"]])
+    row["reckoned_bytes"] = LLAMA2_7B_RECKONED.get(n) if plan.device == "cuda" else None
+    dense = layout(f"{plan.llama} fsdp={n}", {"fsdp": n}, llama_args(plan, plan.llama, tokens),
+                   ref="llama")
+    layout(f"{plan.llama} fsdp={half} x tp=2", {"fsdp": half, "tp": 2},
+           llama_args(plan, plan.llama, tokens), ref="llama")
+    moe_args = llama_args(plan, plan.moe, tokens)
+    ep = layout(f"{plan.moe} ep={n}", {"ep": n}, moe_args, ref="moe", moe=True)
+    layout(f"{plan.moe} fsdp={n}", {"fsdp": n}, moe_args, ref="moe", moe=True)
+    layout(f"{plan.moe} ep=2 x fsdp={half}", {"fsdp": half, "ep": 2}, moe_args, ref="moe",
+           moe=True)
+
+    # Where the time goes: the ep=N and fsdp=N runs again, traced at
+    # steps 1-2 by the entry point's profiler window.
+    for row, spec, model in ((ep, {"ep": n}, plan.moe), (dense, {"fsdp": n}, plan.llama)):
+        os.environ["JAX_MESH_SPEC"] = json.dumps(spec)
+        mine = traced(plan, os.path.join(tmp, f"profile-{model}-{rank}"),
+                      llama_args(plan, model, tokens))
+        row["trace"] = [None] * n
+        dist.all_gather_object(row["trace"], mine)
+        log(f"[n] rank {rank}: {row['name']} traced: {mine}")
+    ep["a2a_ms"] = [sum(ms for k, ms in t["nccl_ms"].items() if any(a in k for a in NCCL_A2A))
+                    for t in ep["trace"]]
+    ep["a2a_alone_ms"] = a2a_alone(plan, n)
+
+    # BERT data parallel over dp=N.
+    os.environ["JAX_MESH_SPEC"] = json.dumps({"dp": n})
+    from tf_operator_tpu_torch.models import bert
+
+    mesh = gpu_init.global_mesh(device=plan.device)
+    group, size = data_parallel_group(bert.CONFIGS[plan.bert], mesh)
+    gather(train_bert(plan, group, rank, size), f"{plan.bert} dp={n}", mesh=mesh_axes(mesh),
+           ref="bert", kernels=True)
+
+    dcp_row(plan, tokens, tmp, ep, rows, gather, n)
+    if rank == 0:
+        with open(os.path.join(tmp, "rows.json"), "w") as f:
+            json.dump(rows, f)
+        torch.save(routes, os.path.join(tmp, "routes.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def traced(plan: Plan, prof: str, argv: list) -> dict:
+    """A llama_train run traced at steps 1-2 (``TPU_PROFILE_*``): per step,
+    the window's ms (first kernel's start to last kernel's end), the
+    busy ms of every kernel but NCCL's (the union of their intervals),
+    the idle share that leaves, and the NCCL kernels' ms by name (their
+    time includes waiting for the slowest peer)."""
+    os.environ.update(TPU_PROFILE_DIR=prof, TPU_PROFILE_START_STEP="1",
+                      TPU_PROFILE_NUM_STEPS="2")
+    try:
+        train_llama(plan, argv)
+    finally:
+        for key in ("TPU_PROFILE_DIR", "TPU_PROFILE_START_STEP", "TPU_PROFILE_NUM_STEPS"):
+            os.environ.pop(key)
+    (trace,) = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    kernels = [e for e in cs.read_json(trace)["traceEvents"] if e.get("cat") == "kernel"]
+    if not kernels:
+        return {"window_ms": 0.0, "busy_ms": 0.0, "idle_share": None, "nccl_ms": {}}
+    nccl, busy, end = {}, 0.0, -math.inf
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        if e["name"].startswith("nccl"):
+            nccl[e["name"]] = nccl.get(e["name"], 0.0) + e["dur"] / 2e3
+            continue
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    window = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 2e3
+    return {"window_ms": window, "busy_ms": busy / 2e3, "idle_share": 1 - busy / 2e3 / window,
+            "nccl_ms": nccl}
+
+
+def a2a_alone(plan: Plan, n: int) -> list:
+    """Every rank's ms of one all-to-all of the ep=N dispatch's shape
+    ([e, b * s / group, cap, d] of moe-125m at 8 rows) alone, by CUDA
+    events around 20 calls after a barrier; None on the CPU."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models import llama
+
+    if plan.device != "cuda":
+        return [None] * n
+    cfg = llama.CONFIGS[plan.moe]
+    groups = plan.rows * plan.seq // cfg.moe_group_size
+    cap = int(cfg.capacity_factor * cfg.moe_group_size * cfg.experts_per_token / cfg.n_experts)
+    x = torch.randn(cfg.n_experts, groups, cap, cfg.dim, device="cuda").to(torch.bfloat16)
+    out = torch.empty_like(x)
+    for _ in range(3):
+        dist.all_to_all_single(out, x)
+    dist.barrier()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        dist.all_to_all_single(out, x)
+    end.record()
+    torch.cuda.synchronize()
+    ms = [None] * n
+    dist.all_gather_object(ms, start.elapsed_time(end) / 20)
+    return ms
+
+
+def dcp_row(plan: Plan, tokens: str, tmp: str, ep: dict, rows: list, gather, n: int) -> None:
+    """moe over ep=N: 2 steps, a DCP save, a restore into a new setup
+    (byte-equal on every rank) and 2 steps resumed: the ep=N run's
+    losses of steps 2-3."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.runtime.shard_server import flatten_state
+    from tf_operator_tpu_torch.train import llama_train
+
+    os.environ["JAX_MESH_SPEC"] = json.dumps({"ep": n})
+    ckpt = os.path.join(tmp, "ckpt")
+    argv = llama_args(plan, plan.moe, tokens) + ["--checkpoint-dir", ckpt]
+    reset(plan)
+    s = llama_train.setup(llama_train.parse_args(argv))
+    state, first = s.state, []
+    for _ in range(2):
+        state, loss = s.step_fn(state, next(s.batches))
+        first.append(loss.item())
+    t0 = time.perf_counter()
+    s.ckpt.save(state, force=True)
+    blocked = time.perf_counter() - t0
+    s.ckpt.close()
+    persist = s.ckpt.last_persist_seconds
+    saved = {k: v.detach().clone() for k, v in flatten_state(state).items()}
+    del s, state
+    reset(plan)
+    t1 = time.perf_counter()
+    r = llama_train.setup(llama_train.parse_args(argv))
+    restore_s = time.perf_counter() - t1
+    mine = cs.bits_equal(flatten_state(r.state), saved)
+    equal = [None] * n
+    dist.all_gather_object(equal, mine)
+    outcome = (r.restore.path, r.restore.cause, r.restore.step)
+    out = llama_train.run(llama_train.parse_args(argv), r)
+    row = {"model": plan.moe, "losses": first + out["losses"], "mesh": out["mesh"],
+           "step_s": out["window_seconds"] / max(out["window_steps"], 1),
+           "flops_per_token": out["config"].flops_per_token(plan.seq), **counters(plan, 2)}
+    row["tokens_per_s"] = out["tokens_per_step"] / row["step_s"]
+    log(f"[n] rank {dist.get_rank()}: DCP save blocked {blocked:.3f} s, persist "
+        f"{persist:.3f} s; restore {outcome} in {restore_s:.3f} s (setup included), "
+        f"byte-equal {mine}")
+    gather(row, f"{plan.moe} ep={n} DCP resume", restore_equal=equal, restore=outcome,
+           resumed_against=ep["losses"])
+    ok = all(equal) and outcome == ("storage", "ok", 2)
+    worst = max(cs.rel(a, b) for a, b in zip(row["losses"], ep["losses"]))
+    row["dcp_ok"] = ok and worst <= cs.LOSS_TOL
+    if dist.get_rank() == 0:
+        log(f"[n] DCP resume: losses {row['losses']} against the ep={n} run's {ep['losses']}: "
+            f"worst rel {worst:.3e}; restore {outcome}, byte-equal on every rank {equal}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,8 +23,14 @@ operations).
 import dataclasses
 import functools
 import importlib.util
+import json
 import math
+import os
 import pathlib
+import socket
+import subprocess
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -288,12 +294,141 @@ def test_bert_train_prints_finite_losses(capsys):
 
 
 def test_multi_card_bert_is_refused(monkeypatch):
+    """BERT's step is data parallel over the data axes; over tp it is
+    refused, by bert_train and by the sharding rules."""
     monkeypatch.setattr(gpu_init, "initialize",
                         lambda device=None: gpu_init.Topology(num_processes=2))
-    with pytest.raises(NotImplementedError, match="3b"):
+    monkeypatch.setattr(bert_train.dist, "is_initialized", lambda: True)
+    mesh = types.SimpleNamespace(mesh_dim_names=("fsdp", "tp"),
+                                 mesh=types.SimpleNamespace(shape=(1, 2)))
+    monkeypatch.setattr(gpu_init, "global_mesh", lambda topo, device: mesh)
+    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
         bert_train.run(bert_train.parse_args(["--device", "cpu", "--steps", "1"]))
-    with pytest.raises(NotImplementedError, match="3b"):
-        sharding.check_shardable(bert.CONFIGS["bert-base"], {"fsdp": 2})
+    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
+        sharding.check_shardable(bert.CONFIGS["bert-base"], {"fsdp": 2, "tp": 2})
+    for axes in ({"fsdp": 2}, {"dp": 2, "fsdp": 2}, {"slice": 2, "ep": 2, "tp": 1}):
+        sharding.check_shardable(bert.CONFIGS["bert-base"], axes)
+
+
+# ------------------------------------------------- data parallel, 2 processes
+DP_STEPS, DP_BATCH, DP_MASK, DP_LR = 3, 4, 0.3, 1e-3
+DP_ARGS = ["--device", "cpu", "--steps", str(DP_STEPS), "--batch", str(DP_BATCH), "--seq",
+           str(SEQ), "--mask-prob", str(DP_MASK), "--lr", str(DP_LR), "--log-every", "1"]
+DP_WORKER = r"""
+import dataclasses, json, sys
+import torch, torch.distributed as dist
+from tf_operator_tpu_torch.models import bert
+bert.CONFIGS["bert-tiny"] = dataclasses.replace(
+    bert.CONFIGS["bert-tiny"], dtype=torch.float32, param_dtype=torch.float32)
+state = torch.load(sys.argv[2])
+bert.Bert.init_weights = lambda self, generator=None: self.load_state_dict(state)
+from tf_operator_tpu_torch.train import bert_train
+out = bert_train.run(bert_train.parse_args(sys.argv[3:]))
+with open(sys.argv[1] + ".%d" % dist.get_rank(), "w") as fh:
+    json.dump(out["losses"], fh)
+dist.destroy_process_group()
+"""
+
+
+def global_batches():
+    """The global batch of each step, as the 2 processes of the
+    data-parallel run draw it: process r's rows from default_rng(r)."""
+    rngs = [np.random.default_rng(r) for r in range(2)]
+    for _ in range(DP_STEPS):
+        parts = [bert_train.mlm_batch(rng, 256, DP_BATCH // 2, SEQ, DP_MASK) for rng in rngs]
+        yield tuple(np.concatenate(arrays) for arrays in zip(*parts))
+
+
+def example_losses():
+    """The JAX example's own train_step on the global batches, from the
+    reference's weights at fp32: its init and its shard_batch replaced,
+    its jitted step's losses read as it returns them."""
+    import tf_operator_tpu.train.data as jax_data
+
+    spec = importlib.util.spec_from_file_location("jax_bert_train", EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    arrays = iter([x for batch in global_batches() for x in batch])
+    losses, jit = [], jax.jit
+
+    def recording_jit(fn, *args, **kwargs):
+        compiled = jit(fn, *args, **kwargs)
+        if fn.__name__ != "train_step":
+            return compiled
+
+        def call(*step_args):
+            out = compiled(*step_args)
+            losses.append(float(out[2]))
+            return out
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jax_bert.CONFIGS, "bert-tiny", configs()[0])
+        mp.setattr(jax_bert, "init_params",
+                   lambda *a, **k: jax.tree.map(jnp.asarray, reference()["params"]["params"]))
+        mp.setattr(jax_data, "shard_batch", lambda x, sharding: next(arrays))
+        mp.setattr(jax, "jit", recording_jit)
+        example.main(["--model", "bert-tiny", *DP_ARGS[2:]])
+    return losses
+
+
+@pytest.fixture(scope="module")
+def data_parallel(tmp_path_factory):
+    """{"ranks": [losses of rank 0, rank 1], "single": one process on the
+    same global batches, "example": the JAX example's step, "unmoved": the
+    last batch's loss on the initial weights}."""
+    tmp = tmp_path_factory.mktemp("bert_dp")
+    state_path = tmp / "state.pt"
+    torch.save(reference()["state"], state_path)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_WORKER, str(tmp / "losses"), str(state_path), *DP_ARGS],
+        cwd=EXAMPLE.parents[3], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS":
+             f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(r)})
+        for r in range(2)]
+    try:
+        model = build()
+        opt = ts.adamw(DP_LR, weight_decay=0.01)
+        state, step = ts.init_train_state(model, opt), ts.make_train_step(
+            opt, loss=bert_train.mlm_loss)
+        single = []
+        for batch in global_batches():
+            state, loss = step(state, batch)
+            single.append(loss.item())
+        with torch.no_grad():  # the last batch's loss before any update
+            unmoved = bert_train.mlm_loss(build(), tuple(torch.as_tensor(x).long()
+                                                         for x in batch)).item()
+        example = example_losses()
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    ranks = [json.loads((tmp / f"losses.{r}").read_text()) for r in range(2)]
+    return {"ranks": ranks, "single": single, "example": example, "unmoved": unmoved}
+
+
+def test_data_parallel_bert_train_matches_one_process(data_parallel):
+    single = data_parallel["single"]
+    # The processes' masked counts differ, so the mean of their own means
+    # would not be the global batch's loss.
+    counts = [[(labels[r * 2:(r + 1) * 2] >= 0).sum() for r in range(2)]
+              for _, labels, _ in global_batches()]
+    assert any(a != b for a, b in counts)
+    assert abs(single[-1] - data_parallel["unmoved"]) > 1e-3  # the updates moved it
+    for losses in data_parallel["ranks"]:
+        np.testing.assert_allclose(losses, single, rtol=1e-5)
+
+
+def test_data_parallel_bert_train_matches_the_jax_example_step(data_parallel):
+    np.testing.assert_allclose(data_parallel["example"], data_parallel["single"], rtol=1e-5)
+    for losses in data_parallel["ranks"]:
+        np.testing.assert_allclose(losses, data_parallel["example"], rtol=1e-5)
 
 
 def test_config_accounting_matches():

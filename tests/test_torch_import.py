@@ -43,6 +43,7 @@ MODULES = [
     "tf_operator_tpu_torch.cluster.kube",
     "tf_operator_tpu_torch.parallel.mesh",
     "tf_operator_tpu_torch.parallel.sharding",
+    "tf_operator_tpu_torch.parallel.experts",
     "tf_operator_tpu_torch.testing.rendezvous_workload",
     "tf_operator_tpu_torch.testing.parity_workload",
     "chip_smoke",
@@ -62,6 +63,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
         f"import sys; {blocked}\n"
         f"import importlib\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "import runpy; runpy.run_path('scripts/multicard_smoke.py', run_name='multicard_smoke')\n"
         "from tf_operator_tpu_torch.ops import build\n"
         "assert build._lib is None, 'a kernel library was loaded at import'\n"
         "print('imported')\n"
@@ -82,7 +84,8 @@ def _imported_roots(path):
 
 
 def test_no_forbidden_import_anywhere_in_the_port():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "scripts" / "multicard_smoke.py"]
     assert len(files) > 10
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
@@ -181,3 +184,11 @@ def test_every_csrc_include_exists():
         for name in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
             assert (CSRC / name).is_file(), f"{src.name} includes missing {name}"
         assert "<mma.h>" not in src.read_text(), f"{src.name} still uses WMMA"
+
+
+def test_multicard_smoke_fails_without_cards():
+    proc = run_python("import runpy, sys; sys.argv = ['multicard_smoke.py']; "
+                      "runpy.run_path('scripts/multicard_smoke.py', run_name='__main__')")
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert '"ok": true' not in proc.stdout

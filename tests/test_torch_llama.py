@@ -129,6 +129,17 @@ def test_unported_features_raise():
         llama.Llama(llama.CONFIGS["llama-tiny"], device="cpu", pp=2)
 
 
+@pytest.mark.parametrize("feature", ["ring", "pipeline"])
+def test_unported_features_name_their_roadmap_items(feature):
+    if feature == "ring":
+        ring = dataclasses.replace(llama.CONFIGS["llama-tiny"], attention_impl="ring")
+        with pytest.raises(NotImplementedError, match="item 7c, ring attention"):
+            llama.Llama(ring, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="item 7d, pipeline"):
+            llama.Llama(llama.CONFIGS["llama-tiny"], device="cpu", pp=2)
+
+
 def test_config_accounting_matches():
     for name, jcfg in jax_llama.CONFIGS.items():
         tcfg = llama.CONFIGS[name]

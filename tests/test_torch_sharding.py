@@ -3,9 +3,10 @@
 
 The tensor-parallel rules put tp where the JAX package's ``_PARAM_RULES``
 put it on every block weight; the embedding and the head differ by design
-(fsdp only). Axes the port does not have yet are refused. Two 2-process
-gloo runs of the ``llama_train`` entry point on llama-tiny at fp32 under
-remat "dots", from a token file, one with mesh fsdp=2 (from the JAXJob env)
+(fsdp only). Axes the port does not have yet are refused; ``ep`` is kept,
+at size 1 too. Two 2-process gloo runs of the ``llama_train`` entry point
+on llama-tiny at fp32 under remat "dots", from a token file, one with
+mesh fsdp=2 (from the JAXJob env)
 and one with tp=2 (from a PyTorchJob's c10d env): the born-sharded weights
 are bit-equal to the unsharded init, and the loss sequence of 5 steps is
 the single-process one (1e-5 relative: only the order of the sums
@@ -26,6 +27,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from tf_operator_tpu.parallel.sharding import spec_for_param
 from tf_operator_tpu_torch.models import llama
@@ -108,16 +110,26 @@ def test_tp_rules_match_the_jax_rules():
 
 
 def test_unported_axes_are_refused():
-    for axis, item in (("pp", "pipeline"), ("ep", "MoE"), ("sp", "ring attention")):
+    for axis, item in (("pp", "item 7d, pipeline"), ("sp", "item 7c, ring attention")):
         with pytest.raises(NotImplementedError, match=item):
             port_mesh.make_mesh(port_mesh.MeshSpec({"fsdp": 2, axis: 2}), "cpu")
     with pytest.raises(ValueError, match="unknown mesh axis"):
         port_mesh.MeshSpec({"model": 2})
-    # An MoE model's experts are not placed over tp or ep yet; a dense
-    # model shards over tp.
+    # ep is ported: a declared ep is kept, at size 1 too, as the JAX
+    # make_mesh keeps it; an MoE model's experts go over ep or tp.
+    assert "ep" not in port_mesh.NOT_PORTED
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        mesh = port_mesh.make_mesh(port_mesh.MeshSpec({"ep": 1}), "cpu")
+    finally:
+        dist.destroy_process_group()
+    assert port_mesh.mesh_axes(mesh) == {"fsdp": 1, "ep": 1}
     for axes in ({"fsdp": 1, "tp": 2}, {"fsdp": 2, "ep": 2}):
-        with pytest.raises(NotImplementedError, match="multi-card MoE"):
-            sharding.check_shardable(llama.CONFIGS["moe-tiny"], axes)
+        sharding.check_shardable(llama.CONFIGS["moe-tiny"], axes)
     sharding.check_shardable(llama.CONFIGS["llama-tiny"], {"fsdp": 1, "tp": 2})
     assert port_mesh.AXIS_ORDER == ("slice", "pp", "dp", "fsdp", "ep", "sp", "tp")
 

@@ -45,6 +45,7 @@ from ..ops import attention as attn_ops
 from ..ops import remat
 from ..ops.cross_entropy import chunked_cross_entropy
 from ..ops.rope import rope
+from ..parallel import experts as ep
 
 
 @dataclass(frozen=True)
@@ -370,7 +371,19 @@ class MoE(nn.Module):
     Under remat the router's product, which has no batch dimension, is kept
     by "dots" (JAX's dots_with_no_batch_dims_saveable), so the replay routes
     from the forward's own logits; the dispatch, expert and combine products
-    have one (b or e) and are replayed.
+    have one (b or e) and are replayed, and so are the all-to-alls between
+    them: no policy keeps an all-to-all's output.
+
+    ``layout`` (``parallel/experts.ExpertLayout``, set by
+    ``parallel/sharding.shard_model``) says where the experts live. With an
+    expert axis the dispatch einsum's ``[e, b, cap, d]`` goes to the
+    experts' owners by an all-to-all, the owners run their ``e/E`` experts
+    on ``[e/E, E*b, cap, d]`` and the output comes back by the reverse
+    all-to-all before the combine; the gather routing then falls back to
+    the einsums, as in the JAX layer. Capacity is per batch row, so
+    splitting the batch drops the same tokens. The load-balancing loss is
+    formed from statistics summed over every data rank: the global
+    batch's, as the JAX layer's under ``jit``.
     """
 
     def __init__(self, cfg: LlamaConfig, device=None):
@@ -387,6 +400,7 @@ class MoE(nn.Module):
         self.experts_w1 = weight(e, d, f)
         self.experts_w3 = weight(e, d, f)
         self.experts_w2 = weight(e, f, d)
+        self.layout = ep.ExpertLayout()
 
     def forward(self, x):
         cfg = self.cfg
@@ -414,22 +428,31 @@ class MoE(nn.Module):
             pos.append(p)
             keep.append((p < cap) & (oh > 0))
             taken = taken + oh.sum(1, keepdim=True)
-        route = self._gather if cfg.moe_impl == "gather" else self._einsum
+        gather = cfg.moe_impl == "gather" and self.layout.axis is None
+        route = self._gather if gather else self._einsum
         y = route(x, gate, idx, pos, keep, cap)
 
         # Switch load-balance loss e * sum(f * P): f the share of routes to
-        # each expert, P its mean probability, over the grouped shapes.
-        f_frac = onehot.float().sum(2).mean((0, 1)) / k
-        aux = e * (f_frac * probs.mean((0, 1))).sum() * cfg.router_aux_weight
+        # each expert, P its mean probability, over the grouped shapes of
+        # every data rank's batch.
+        layout = self.layout
+        tokens = b * s * layout.data_size
+        f_frac = ep.data_sum(onehot.float().sum((0, 1, 2)), layout) / (tokens * k)
+        p_mean = ep.data_sum(probs.sum((0, 1)), layout) / tokens
+        aux = e * (f_frac * p_mean).sum() * cfg.router_aux_weight
         return y.to(x.dtype).reshape(b0, s0, d), aux
 
     def _experts(self, h):
-        """The SwiGLU experts on their slots: [e, b, cap, d] -> same."""
-        dt = self.cfg.dtype
-        w1, w3, w2 = (w.to(dt) for w in (self.experts_w1, self.experts_w3, self.experts_w2))
+        """The SwiGLU experts on their slots: [e, b, cap, d] -> same, for
+        the experts this rank holds (their ``f`` split over ``tp``: the
+        ``w2`` product's partial sums are summed there)."""
+        dt, layout = self.cfg.dtype, self.layout
+        w1, w3, w2 = (ep.expert_weight(w, layout).to(dt)
+                      for w in (self.experts_w1, self.experts_w3, self.experts_w2))
+        h = ep.copy_to_tp(h, layout)
         act = (F.silu(torch.einsum("ebcd,edf->ebcf", h, w1))
                * torch.einsum("ebcd,edf->ebcf", h, w3))
-        return torch.einsum("ebcf,efd->ebcd", act, w2)
+        return ep.reduce_from_tp(torch.einsum("ebcf,efd->ebcd", act, w2), layout)
 
     def _einsum(self, x, gate, idx, pos, keep, cap):
         """GShard routing: combine [b, s, e, cap] built in ``cfg.dtype``, and
@@ -443,7 +466,11 @@ class MoE(nn.Module):
             combine = combine + weight[..., None] * slot
         dispatch = (combine > 0).to(dt)
         expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(dt))
-        out = self._experts(expert_in)
+        if self.layout.group is not None:
+            out = ep.from_owners(self._experts(ep.to_owners(expert_in, self.layout)),
+                                 self.layout)
+        else:
+            out = self._experts(expert_in)
         # A bf16 product accumulates in fp32 and is rounded once, as the
         # JAX einsum's preferred_element_type=float32 and its cast back.
         return torch.einsum("bsec,ebcd->bsd", combine, out)
@@ -535,14 +562,12 @@ class Llama(nn.Module):
         super().__init__()
         if config.attention_impl == "ring":
             raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP Queue 1: off-path models, "
-                "ring attention)")
+                "ring attention is not ported yet (ROADMAP Queue 1 item 7c, ring attention)")
         if config.attention_impl not in ("pallas", "xla"):
             raise ValueError(f"unknown attention_impl {config.attention_impl!r}")
         if pp > 1:
             raise NotImplementedError(
-                "pipeline parallelism is not ported yet (ROADMAP Queue 1: off-path "
-                "models, pipeline)")
+                "pipeline parallelism is not ported yet (ROADMAP Queue 1 item 7d, pipeline)")
         meta = device is not None and torch.device(device).type == "meta"
         device = torch.device("meta") if meta else resolve_device(device)
         self.config = config

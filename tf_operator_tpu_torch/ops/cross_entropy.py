@@ -16,7 +16,7 @@ from torch.utils.checkpoint import checkpoint
 CE_CHUNK = 512
 
 
-def _masked_nll(logits, targets, ignore_id: int = -1):
+def masked_nll(logits, targets, ignore_id: int = -1):
     """(negative-log-likelihood sum, valid-token count) in fp32;
     ``ignore_id`` targets masked out."""
     logits = logits.float()
@@ -28,7 +28,7 @@ def _masked_nll(logits, targets, ignore_id: int = -1):
 
 def cross_entropy_loss(logits, targets, ignore_id: int = -1):
     """Mean next-token cross entropy in fp32; ``ignore_id`` targets masked out."""
-    nll, count = _masked_nll(logits, targets, ignore_id)
+    nll, count = masked_nll(logits, targets, ignore_id)
     return nll / count.clamp(min=1.0)
 
 
@@ -50,7 +50,7 @@ def chunked_cross_entropy(hidden, weight, targets, chunk: int = CE_CHUNK,
         logits = F.linear(h, weight)
         if bias is not None:
             logits = logits + bias
-        return _masked_nll(logits, t, ignore_id)
+        return masked_nll(logits, t, ignore_id)
 
     total = count = 0.0
     for start in range(0, s + pad, chunk):

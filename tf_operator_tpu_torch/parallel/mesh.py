@@ -3,13 +3,15 @@
 ``DeviceMesh``, one process per GPU.
 
 The canonical axes, outermost to innermost, are the JAX package's
-(``AXIS_ORDER``). The port supports ``slice``, ``dp`` and ``fsdp`` (data
-parallelism, ``fsdp`` with parameters and optimizer state sharded by FSDP2)
-and ``tp`` (tensor parallelism, innermost so that its collectives stay on
-the fastest links). ``pp``, ``ep`` and ``sp`` above size 1 are refused
-until their modules are ported. The DeviceMesh always carries an ``fsdp``
-dim, of size 1 when the job declared none, so that FSDP2 has its shard dim
-on every layout.
+(``AXIS_ORDER``). The port supports ``slice``, ``dp``, ``fsdp`` and ``ep``
+(data parallelism: ``fsdp`` with parameters and optimizer state sharded by
+FSDP2, ``ep`` with an MoE model's experts placed over it,
+``parallel/sharding.py``) and ``tp`` (tensor parallelism, innermost so
+that its collectives stay on the fastest links). ``pp`` and ``sp`` above
+size 1 are refused until their modules are ported. An axis the job
+declared is kept even at size 1, as the JAX ``make_mesh`` keeps it, and
+the DeviceMesh always carries an ``fsdp`` dim, of size 1 when the job
+declared none, so that FSDP2 has its shard dim on every layout.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 AXIS_ORDER = ("slice", "pp", "dp", "fsdp", "ep", "sp", "tp")
 NOT_PORTED = {
     "pp": "pipeline parallelism is not ported yet (ROADMAP Queue 1 item 7d, pipeline)",
-    "ep": "expert parallelism is not ported yet (ROADMAP Queue 1 item 3a, multi-card MoE)",
     "sp": "sequence parallelism is not ported yet (ROADMAP Queue 1 item 7c, ring attention)",
 }
 

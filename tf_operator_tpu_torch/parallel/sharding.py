@@ -8,8 +8,10 @@ lets XLA insert the collectives, the port applies two torch mechanisms:
 - tensor parallelism over ``tp`` (DTensor plans per block): the megatron
   layout of the JAX rules, wq/wk/wv/w1/w3 column-wise (their output
   features over tp) and wo/w2 row-wise (their input features over tp);
-- FSDP2 ``fully_shard`` over ``fsdp`` on each block and on the root, as
-  HSDP with ``slice``/``dp`` as the replicate dim.
+- FSDP2 ``fully_shard`` over ``fsdp`` (with ``ep`` folded in: an MoE
+  model's tokens differ over ``ep``, so every dense gradient averages over
+  it too) on each block and on the root, as HSDP with ``slice``/``dp`` as
+  the replicate dim.
 
 The embedding and the output head are sharded over fsdp only, replicated
 over tp, where the JAX rules also put their d (embedding) or vocab (head)
@@ -18,10 +20,26 @@ comes later.
 
 An MoE layer's fp32 router gets a ``fully_shard`` group of its own, since
 FSDP2 needs one original dtype in a group and the block's other
-parameters are in ``param_dtype``; its experts shard over fsdp with the
-block. Experts over ``ep`` or ``tp`` (the JAX package's
-``moe_expert_axes``, an all-to-all dispatch) are refused until ported, as
-is a BERT model, whose sharded step is not ported yet.
+parameters are in ``param_dtype``. Its experts follow the JAX package's
+expert rules (``resolve_expert_axis``, ``moe_expert_axes``):
+
+- over the resolved expert axis (``ep``, else ``fsdp`` when the expert
+  count divides it) they are DTensors sharded ``Shard(0)``: each rank
+  keeps its ``e/E`` experts whole, never gathers them, and the dispatch
+  reaches them by all-to-all (``parallel/experts.py``). They stay out of
+  the block's FSDP2 group; their gradient carries the global mean's
+  factor and is summed over the ranks that hold the same experts. Over
+  ``ep`` with ``fsdp`` above 1, each local expert's ``d`` is sharded over
+  ``fsdp`` by an FSDP2 group of its own, as the JAX rule puts ``d`` on
+  ``fsdp``;
+- under ``tp`` their ``f`` is split over ``tp`` (the ``w2`` product's
+  partial sums are summed there);
+- with no resolved axis they shard with the block, as before.
+
+A BERT model is not sharded: its step is data parallel (replicated
+parameters, gradients averaged over the data axes: ``data_parallel_group``
+and ``train_step.make_train_step``'s ``replica_group``), as the JAX
+example's is. BERT over ``tp`` is refused until ported.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ from typing import Optional
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import fully_shard
+from torch.distributed.tensor import Shard, distribute_tensor
 from torch.distributed.tensor.parallel import (
     ColwiseParallel,
     RowwiseParallel,
@@ -39,6 +58,7 @@ from torch.distributed.tensor.parallel import (
 )
 
 from ..models.bert import BertConfig
+from .experts import ExpertLayout
 from .mesh import mesh_axes
 
 DATA_AXES = ("slice", "dp", "fsdp", "ep")
@@ -89,44 +109,151 @@ def data_coords(mesh: DeviceMesh) -> tuple[int, int]:
     return rank, size
 
 
-def _fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
-    """The mesh FSDP2 shards over: ``fsdp``, with ``slice``/``dp`` (flattened
-    into one dim when both are present) as HSDP's replicate dim."""
+def resolve_expert_axis(axes: dict, n_experts: Optional[int]) -> Optional[str]:
+    """The mesh axis that carries the MoE expert dim, from the mesh's
+    ``{axis: size}``: ``ep`` when present (at any size), else ``fsdp`` when
+    it is above 1 and the expert count divides it, else None (the experts
+    shard with their block). The JAX package's ``_resolve_expert_axis``."""
+    if "ep" in axes:
+        return "ep"
+    fsdp = axes.get("fsdp", 0)
+    if fsdp > 1 and n_experts and n_experts % fsdp == 0:
+        return "fsdp"
+    return None
+
+
+def moe_expert_axes(axes: Optional[dict], n_experts: int):
+    """(expert axis, batch axes) of the dispatch's ``[e, b, cap, d]``: the
+    expert dim on the resolved expert axis, the batch dim on the remaining
+    data axes. The JAX package's ``moe_expert_axes``."""
+    if axes is None:
+        return None, DATA_AXES
+    axis = resolve_expert_axis(axes, n_experts)
+    return axis, tuple(a for a in DATA_AXES if a != axis and a != "ep")
+
+
+def _flat(mesh: DeviceMesh, dims: tuple) -> DeviceMesh:
+    """``mesh[dims]`` as one dim, flattened under the joined names when
+    there are several (they are adjacent in ``AXIS_ORDER``); made once."""
+    if len(dims) == 1:
+        return mesh[dims[0]]
+    name = "_".join(dims)
+    try:
+        return mesh[name]
+    except KeyError:
+        return mesh[dims]._flatten(name)
+
+
+def _group(mesh: DeviceMesh, dims: tuple):
+    """(the process group over ``dims``, their total size), or (None, 1)
+    when there are none."""
+    if not dims:
+        return None, 1
+    sub = _flat(mesh, dims)
+    return sub.get_group(), sub.size()
+
+
+def _fsdp_mesh(mesh: DeviceMesh, fold_ep: bool = True) -> DeviceMesh:
+    """The mesh FSDP2 shards over: ``fsdp``, with ``ep`` above 1 folded in
+    when ``fold_ep`` (``ep`` alone when ``fsdp`` is 1), and ``slice``/``dp``
+    (flattened into one dim when both are present) as HSDP's replicate
+    dim."""
+    shard = ("fsdp",)
+    if fold_ep and "ep" in mesh.mesh_dim_names and mesh["ep"].size() > 1:
+        shard = ("fsdp", "ep") if mesh["fsdp"].size() > 1 else ("ep",)
     rep = _present(mesh, _REPLICATE_AXES)
     if not rep:
-        return mesh["fsdp"]
-    if len(rep) > 1:
-        mesh[rep]._flatten("replicate")
-        rep = ("replicate",)
-    return mesh[(*rep, "fsdp")]
+        return _flat(mesh, shard)
+    names = (_flat(mesh, rep).mesh_dim_names[0], _flat(mesh, shard).mesh_dim_names[0])
+    return mesh[names]
 
 
 def check_shardable(config, axes: dict) -> None:
     """Refuse a layout the port cannot shard ``config`` over yet: a BERT
-    model on any mesh, an MoE model with ``tp`` or ``ep`` above 1."""
+    model over any axis but the data axes."""
     if isinstance(config, BertConfig):
-        raise NotImplementedError(
-            f"BERT over mesh {axes}: BERT over several cards is not ported yet "
-            "(ROADMAP Queue 1 item 3b, multi-card BERT)")
-    if config.n_experts and any(axes.get(a, 1) > 1 for a in ("tp", "ep")):
-        raise NotImplementedError(
-            f"MoE over mesh {axes}: experts over ep or tp are not ported yet "
-            "(ROADMAP Queue 1 item 3a, multi-card MoE)")
+        other = {a: n for a, n in axes.items() if a not in DATA_AXES and n > 1}
+        if other:
+            raise NotImplementedError(
+                f"BERT over mesh {axes}: BERT's step is data parallel; BERT over {other} is "
+                "not ported yet (ROADMAP Queue 1 item 3c, BERT over tp)")
+
+
+# Expert weights [e, d, f] (w1, w3) and [e, f, d] (w2): the dims of f and d.
+_F_DIM = {"experts_w1": 2, "experts_w3": 2, "experts_w2": 1}
+_D_DIM = {"experts_w1": 1, "experts_w3": 1, "experts_w2": 2}
+
+
+def expert_layout(mesh: DeviceMesh, n_experts: int) -> ExpertLayout:
+    """The layout of an MoE layer's experts on ``mesh``. The gradient of
+    the global batch's mean is the owners' sum over the expert axis,
+    summed over the other data axes, over the data size: where no FSDP2
+    group holds the experts, their gradient is scaled by ``1/data_size``
+    and summed over the other data axes; over ``ep`` with ``fsdp`` above 1
+    an FSDP2 group of their own (``fsdp_d``) averages over those, and the
+    gradient is scaled by ``1/E``."""
+    axes = mesh_axes(mesh)
+    axis = resolve_expert_axis(axes, n_experts)
+    data = _present(mesh, DATA_AXES)
+    data_group, data_size = _group(mesh, data)
+    tp_group = _group(mesh, ("tp",))[0] if axes.get("tp", 1) > 1 else None
+    if axis is None:
+        return ExpertLayout(tp_group=tp_group, data_group=data_group, data_size=data_size)
+    fsdp_d = axis == "ep" and axes.get("fsdp", 1) > 1
+    replicas = None if fsdp_d else _group(mesh, tuple(a for a in data if a != axis))[0]
+    return ExpertLayout(axis, mesh[axis].get_group(), axes[axis], tp_group, data_group,
+                        data_size, replicas, 1.0 / (axes[axis] if fsdp_d else data_size),
+                        fsdp_d)
+
+
+def place_experts(moe: nn.Module, mesh: DeviceMesh) -> Optional[set]:
+    """Give ``moe`` its layout (``expert_layout``) and make its expert
+    weights DTensors over the expert axis (``Shard(0)``) and ``tp`` (``f``
+    split); returns the parameters that the block's FSDP2 group must leave
+    alone, or None."""
+    layout = moe.layout = expert_layout(mesh, moe.cfg.n_experts)
+    dims = tuple(a for a in (layout.axis, "tp" if layout.tp_group is not None else None) if a)
+    if not dims:
+        return None
+    sub = mesh[dims]
+    for name, f_dim in _F_DIM.items():
+        placements = [Shard(0)] * (layout.axis is not None)
+        placements += [Shard(f_dim)] * (layout.tp_group is not None)
+        weight = getattr(moe, name)
+        setattr(moe, name, nn.Parameter(distribute_tensor(weight.data, sub, placements,
+                                                          src_data_rank=None)))
+    if layout.axis is None:
+        return None  # f split over tp, in the block's group
+    if layout.fsdp_d:
+        d_dims = {id(getattr(moe, n)): d for n, d in _D_DIM.items()}
+        fully_shard(moe, mesh=_fsdp_mesh(mesh, fold_ep=False),
+                    shard_placement_fn=lambda p: Shard(d_dims[id(p)]))
+        return None
+    return {getattr(moe, n) for n in _F_DIM}
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Shard ``model`` (a Llama, before its storage exists: on the meta
-    device; a Bert is refused) over ``mesh`` in place: tensor-parallel
-    plans on each block over ``tp`` when it is above 1, then FSDP2 on each
-    MoE router, each block and the root."""
+    device) over ``mesh`` in place: tensor-parallel plans on each block
+    over ``tp`` when it is above 1, then FSDP2 on each MoE router, the
+    experts placed (``expert_layout``), FSDP2 on each block and the root."""
     check_shardable(model.config, mesh_axes(mesh))
     if "tp" in mesh.mesh_dim_names and mesh["tp"].size() > 1:
         for block in model.layers:
             parallelize_module(block, mesh["tp"], _tp_plan(block))
     fsdp = _fsdp_mesh(mesh)
     for block in model.layers:
+        ignored = None
         if block.moe:
             fully_shard(block.feed_forward.router, mesh=fsdp)
-        fully_shard(block, mesh=fsdp)
+            ignored = place_experts(block.feed_forward, mesh)
+        fully_shard(block, mesh=fsdp, ignored_params=ignored)
     fully_shard(model, mesh=fsdp)
     return model
+
+
+def data_parallel_group(config, mesh: DeviceMesh):
+    """(the process group over ``mesh``'s data axes, its size) for a model
+    whose step is data parallel (BERT's): refused on any other axis."""
+    check_shardable(config, mesh_axes(mesh))
+    return _group(mesh, _present(mesh, DATA_AXES))

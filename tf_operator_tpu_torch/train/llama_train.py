@@ -254,16 +254,16 @@ def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
                  ckpt, shard_srv, outcome)
 
 
-def run(args: argparse.Namespace) -> dict:
-    """Train from the restored step (0 on a fresh run) to ``args.steps``;
-    returns the losses (the global batch's, one float a step), the timed
+def run(args: argparse.Namespace, s: Optional[Setup] = None) -> dict:
+    """Train ``s`` (by default a new :func:`setup` of ``args``) from the
+    restored step (0 on a fresh run) to ``args.steps``; returns the losses (the global batch's, one float a step), the timed
     window (``window_steps`` steps in ``window_seconds``, from the host's
     read of the first step's loss to its read of the last's, so that the
     first step, which warms the allocator and the libraries up, stays
     outside) and, with a checkpoint directory, the restore outcome, the
     seconds each save blocked the loop, and the (closed) checkpoint
     manager, whose host snapshot stays servable."""
-    s = setup(args)
+    s = s or setup(args)
     try:
         return _train(args, s)
     finally:

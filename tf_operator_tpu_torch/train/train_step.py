@@ -55,12 +55,15 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def _copies(g: DTensor) -> int:
     """Ranks of the world that hold each element of ``g``: the world over
-    the product of the mesh dims that shard it."""
+    the product of the mesh dims that shard it. FSDP2 shards a tensor-
+    parallel weight's tp-sharded dim again as ``_StridedShard``, which
+    ``is_shard()`` does not count: every placement but ``Replicate``
+    shards."""
     shards = 1
     for dim, placement in enumerate(g.placements):
         if placement.is_partial():
             raise ValueError(f"gradient with a pending reduction {g.placements}")
-        if placement.is_shard():
+        if not placement.is_replicate():
             shards *= g.device_mesh.size(dim)
     return dist.get_world_size() // shards
 
@@ -204,6 +207,24 @@ def init_sharded_train_state(model: nn.Module, optimizer: AdamW, mesh, device,
     return init_train_state(model, optimizer)
 
 
+@torch.no_grad()
+def average_gradients(params, group) -> None:
+    """Average every parameter's gradient over ``group`` (a replicated
+    model's data-parallel step): one all-reduce (a sum, then divided by the
+    size) of all the gradients of one dtype at once."""
+    size = dist.get_world_size(group)
+    by_dtype: dict = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        flat /= size
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in
+                                     zip(flat.split([g.numel() for g in grads]), grads)])
+
+
 def _on_device(batch, device):
     """A batch array (numpy or tensor) on ``device``, integer ids as int64
     and a boolean mask as it is; a tuple of them element by element."""
@@ -213,14 +234,17 @@ def _on_device(batch, device):
     return t.to(device=device, dtype=torch.bool if t.dtype == torch.bool else torch.long)
 
 
-def make_train_step(optimizer: AdamW, loss=loss_fn):
+def make_train_step(optimizer: AdamW, loss=loss_fn, replica_group=None):
     """``step(state, batch) -> (state, loss)``: forward, backward and one
     optimizer update of ``loss(model, batch)``. ``batch`` is this rank's
     [b, s+1] token array (numpy or tensor), or a tuple of arrays (the BERT
     example's ids, labels and mask); a host batch moves to the model's
     device, and a batch already there (``data.DevicePrefetch``) is only
     cast to int64 in place of a copy. On a sharded model the loss returned
-    is the mean over all ranks: the global batch's loss."""
+    is the mean over all ranks: the global batch's loss. With
+    ``replica_group`` the model is replicated over that group (data
+    parallel, ``parallel/sharding.data_parallel_group``): the gradients
+    and the loss returned are averaged over it before the update."""
 
     def step(state: TrainState, batch):
         model = state.model
@@ -231,9 +255,14 @@ def make_train_step(optimizer: AdamW, loss=loss_fn):
             p.grad = None
         value = loss(model, tokens)
         value.backward()
+        if replica_group is not None:
+            average_gradients(params, replica_group)
         opt_state = optimizer.update_(params, [p.grad for p in params], state.opt_state)
         value = value.detach()
-        if isinstance(params[0], DTensor):
+        if replica_group is not None:
+            dist.all_reduce(value, group=replica_group)
+            value = value / dist.get_world_size(replica_group)
+        elif isinstance(params[0], DTensor):
             # Ranks of one tensor-parallel group hold the same loss, so the
             # world's mean is the data-parallel mean.
             dist.all_reduce(value)
