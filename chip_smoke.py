@@ -127,8 +127,17 @@ Phases (any failure raises and the script exits non-zero):
       (llama2-7b at its default fsdp=N, llama-400m over fsdp=N and
       fsdp x tp=2, moe-125m over ep=N, fsdp=N and ep=2 x fsdp, bert-base
       data parallel, a DCP save and restore of the ep=N MoE state, each
-      against a one-card run; its last 200 lines printed); with one card
-      it prints that it did not run and why.
+      against a one-card run; at 4 cards also llama-400m at seq 8192
+      over sp=4, sp=2 x fsdp=2 and sp=2 x tp=2, and at seq 2048 over
+      pp=4 (M=4 and M=8), pp=2 x fsdp=2 and pp=2 x tp=2; its last 200
+      lines printed); with one card it prints that it did not run and why;
+  (o) ring attention's block path on one card: 4 virtual ring ranks run
+      in turn at llama-400m's [2, 8192, 8, 128] bf16 (each rank's
+      [2, 2048] piece), the full, diagonal and skipped blocks through the
+      flash kernels, the lse combine and its backward with dlse; the
+      output and dQ/dK/dV against one causal flash call over the whole
+      sequence at phase c's tolerances; r + 1 forward, dQ and dK/dV
+      launches on ring rank r; each rank's forward and backward ms.
 
 Phases e-m each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
@@ -1221,6 +1230,76 @@ def phase_n() -> None:
         raise AssertionError(f"phase n failed on {n} cards")
 
 
+# Phase (o): ring attention's block path at llama-400m's width and a
+# sequence of 8192 split over 4 sequence shards, the shape that
+# scripts/multicard_smoke.py's sp=4 rows give each card.
+RING = dict(b=2, s=8192, h=8, kvh=8, d=128, causal=True, sp=4)
+
+
+def phase_o(build) -> None:
+    """The ring's blocks (``ops/ring_attention.ring_blocks``: full,
+    diagonal and skipped blocks, the lse combine, and the backward with
+    dlse) with ``RING["sp"]`` virtual ring ranks run in turn in this
+    process, each rank's K/V blocks taken from the others' shards in the
+    order the rotations would bring them, through the kernels; held
+    against one causal flash call over the whole sequence at phase c's
+    tolerances. Each rank's launches (ring rank r: r + 1 of the forward,
+    dQ and dK/dV) and its forward and backward's ms (CUDA events), whose
+    spread is the ring's imbalance."""
+    from tf_operator_tpu_torch.ops import ring_attention as ra
+    from tf_operator_tpu_torch.ops.flash import flash_attention
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c, n = RING, RING["sp"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do, _ = case_inputs(c, gen)
+    ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention(*ref_in, causal=True)
+    ref.backward(do)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sl = c["s"] // n
+
+    def shards(t):
+        return [t[:, r * sl:(r + 1) * sl].contiguous() for r in range(n)]
+
+    def ring(r, qp, kp, vp):
+        return ra.ring_blocks(qp[r], r, n, lambda i: (kp[(r - i) % n], vp[(r - i) % n]))
+
+    qp, kp, vp = (shards(t) for t in leaves)
+    dop = shards(do)
+    outs, launches = [], []
+    for r in range(n):
+        build.reset_launches()
+        o = ring(r, qp, kp, vp)
+        o.backward(dop[r])
+        torch.cuda.synchronize()
+        launches.append({name: build.LAUNCHES[name]
+                         for name in ("flash_fwd", "flash_dq", "flash_dkv")})
+        outs.append(o.detach())
+    want = [{name: r + 1 for name in ("flash_fwd", "flash_dq", "flash_dkv")} for r in range(n)]
+    log(f"[o] ring of {n} virtual ranks at {c['b']}x{c['s']}x{c['h']}x{c['d']} bf16 causal: "
+        f"launches a rank {launches} (want r + 1 each: {want})")
+    if launches != want:
+        raise AssertionError(f"ring launches {launches}, want {want}")
+    check("o", "ring", torch.cat(outs, 1), ref, TOL["o"], "o")
+    for name, got, r in zip(("dq", "dk", "dv"), leaves, ref_in):
+        check(name, "ring", got.grad, r.grad, TOL[name], "o")
+    # Each ring rank's forward and backward alone, on fresh leaves.
+    qp, kp, vp = ([t.detach().requires_grad_() for t in shards(x)] for x in (q, k, v))
+    rank_ms = [time_ms(lambda r=r: torch.autograd.grad(ring(r, qp, kp, vp), (qp[r], *kp, *vp),
+                                                       dop[r]), iters=5, warmup=1)
+               for r in range(n)]
+    whole = [t.detach().requires_grad_() for t in (q, k, v)]
+    whole_ms = time_ms(lambda: torch.autograd.grad(flash_attention(*whole, causal=True),
+                                                   whole, do), iters=5, warmup=1)
+    mean = sum(rank_ms) / n
+    log(f"[o] forward + backward ms a ring rank {[round(t, 4) for t in rank_ms]}: slowest "
+        f"{max(rank_ms) / mean:.3f}x the mean (the slowest rank sets a ring's step); "
+        f"their sum {sum(rank_ms):.4f} ms against one causal flash call over the whole "
+        f"sequence {whole_ms:.4f} ms ({sum(rank_ms) / whole_ms:.3f}x)")
+
+
 STEP_LINE = re.compile(r"^\[llama\] step (\d+) loss (\S+) tokens/sec ([\d,]+)", re.M)
 
 
@@ -1364,6 +1443,7 @@ def main() -> int:
     bert_run = phase_l(build, peak)
     phase_m(build, peak, moe_losses, bert_run)
     phase_n()
+    phase_o(build)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -34,13 +34,24 @@ seed; then, in the N processes, the rows:
   batch 16N, seq 512, 4 steps: the losses at ``LOSS_TOL``;
 - moe-125m over ep=N through DCP: 2 steps, a save, a restore into a new
   setup byte-equal to the saved state (every rank's shards and moments),
-  and 2 steps resumed from it with the ep=N run's losses of steps 2-3.
+  and 2 steps resumed from it with the ep=N run's losses of steps 2-3;
+- at N = 4, the sequence and pipeline axes: llama-400m at seq 8192,
+  global batch 4, over sp=4, sp=2 x fsdp=2 and sp=2 x tp=2 (ring
+  attention), against a one-card run of the same batch, each ring rank's
+  launches and K/V rotations a step against what the ring implies
+  (:func:`ring_expect`), the sp=4 run traced again: the port's flash
+  kernels in every rank's trace and none of torch's attention; llama-400m
+  at seq 2048, global batch 8N, over pp=4 (6 layers a stage, M=4 and
+  M=8 microbatches), pp=2 x fsdp=2 and pp=2 x tp=2 (M=2) against the
+  one-card llama run, each stage's launches and permutes a step against
+  :func:`pipe_expect`.
 
 Every row prints tokens/s per card, the step time, the peak memory of the
 fullest card and the kernels' launches a step per card. The last line is
 a JSON object of every row, ``{"ok": ...}``; with ``--out`` it is also
 written to FILE. The rehearsal runs the same rows on the CPU over gloo
-with fp32 llama-tiny, moe-tiny and bert-tiny (seq 32, 2 rows a process).
+with fp32 llama-tiny (4 layers), moe-tiny and bert-tiny (seq 32, 2 rows a
+process; the ring rows at seq 64).
 """
 
 from __future__ import annotations
@@ -87,12 +98,14 @@ class Plan:
     bert_seq: int = 512
     rows: int = 8  # a card's rows of llama and moe
     bert_rows: int = 16
+    long_seq: int = 8192  # the ring rows' sequence
+    long_rows: int = 4  # the ring rows' global batch
 
     @classmethod
     def for_device(cls, device: str, procs: int) -> "Plan":
         if device == "cuda":
             return cls("cuda", procs)
-        return cls("cpu", procs, "llama-tiny", "moe-tiny", "bert-tiny", 32, 32, 2, 2)
+        return cls("cpu", procs, "llama-tiny", "moe-tiny", "bert-tiny", 32, 32, 2, 2, 64, 4)
 
 
 def log(msg: str) -> None:
@@ -110,35 +123,43 @@ def fp32_on_cpu(plan: Plan) -> None:
                         (bert.CONFIGS, plan.bert)):
         table[name] = dataclasses.replace(table[name], dtype=torch.float32,
                                           param_dtype=torch.float32)
+    # Layers that 4 pipeline stages divide.
+    llama.CONFIGS[plan.llama] = dataclasses.replace(llama.CONFIGS[plan.llama], n_layers=4)
 
 
-def llama_args(plan: Plan, model: str, tokens: str, steps: int = STEPS) -> list:
-    return ["--model", model, "--batch", str(plan.rows * plan.procs), "--seq", str(plan.seq),
+def llama_args(plan: Plan, model: str, tokens: str, steps: int = STEPS, long: bool = False
+               ) -> list:
+    """The entry point's arguments; ``long``: the ring rows' sequence and
+    global batch."""
+    batch, seq = (plan.long_rows, plan.long_seq) if long else (plan.rows * plan.procs, plan.seq)
+    return ["--model", model, "--batch", str(batch), "--seq", str(seq),
             "--log-every", "100", "--warmup", "1", "--steps", str(steps), "--data", tokens,
             "--data-dtype", "uint16", "--device", plan.device]
 
 
 def reset(plan: Plan) -> None:
     from tf_operator_tpu_torch.ops import build
-    from tf_operator_tpu_torch.parallel import experts
+    from tf_operator_tpu_torch.parallel import collectives, experts
 
     gc.collect()
     build.reset_launches()
     experts.reset_counts()
+    collectives.reset_counts()
     if plan.device == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
 
 def counters(plan: Plan, steps: int) -> dict:
-    """This process's launches and all-to-alls a step, and its peak memory."""
+    """This process's launches, all-to-alls and permutes a step, and its
+    peak memory."""
     from tf_operator_tpu_torch.ops import build
-    from tf_operator_tpu_torch.parallel import experts
+    from tf_operator_tpu_torch.parallel import collectives, experts
 
     launches = {k: n / steps for k, n in build.LAUNCHES.items() if n}
     peak = torch.cuda.max_memory_allocated() if plan.device == "cuda" else 0
     return {"launches": launches, "all_to_all": experts.COUNTS["all_to_all"] / steps,
-            "peak_bytes": peak}
+            "ppermute": collectives.COUNTS["ppermute"] / steps, "peak_bytes": peak}
 
 
 def route_hooks(model, routes: dict) -> None:
@@ -228,7 +249,11 @@ def references(plan: Plan, tokens: str) -> dict:
     refs["moe_routes"] = {}
     refs["moe"] = train_llama(plan, llama_args(plan, plan.moe, tokens), refs["moe_routes"])
     refs["bert"] = train_bert(plan)
-    for name in ("llama", "moe", "bert"):
+    names = ["llama", "moe", "bert"]
+    if plan.procs == 4:
+        refs["llama_long"] = train_llama(plan, llama_args(plan, plan.llama, tokens, long=True))
+        names.append("llama_long")
+    for name in names:
         r = refs[name]
         log(f"[n] one card: {r['model']} losses {r['losses']}, step {r['step_s']:.4f} s, "
             f"tokens/s {r['tokens_per_s']:.1f}, peak {r['peak_bytes'] / 1e9:.3f} GB, "
@@ -356,6 +381,22 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
         log(f"[n] {what}: traced steps 1-2, a card: window {t['window_ms']:.2f} ms a step, "
             f"compute kernels busy {t['busy_ms']:.2f} ms (idle share {t['idle_share']}); "
             f"NCCL kernels ms a step {t['nccl_ms']}")
+    expected = [(i, r) for i, r in enumerate(ranks) if r.get("expect")]
+    for i, r in expected:
+        keys = r["expect"] if plan.device == "cuda" else ("ppermute",)
+        got = {k: r["ppermute"] if k == "ppermute" else r["launches"].get(k, 0) for k in keys}
+        want = {k: r["expect"][k] for k in keys}
+        log(f"[n] {what}: rank {i} launches and permutes a step {got}, the layout implies "
+            f"{want}")
+        if got != want:
+            fails.append(f"{what}: rank {i} launches and permutes a step {got}, want {want}")
+    for i, t in enumerate(row.get("trace", []) if expected else []):
+        log(f"[n] {what}: rank {i} traced steps 1-2: the port's kernels {t['ours']}; torch's "
+            f"attention kernels {t['sdpa']}")
+        if t["sdpa"] or (plan.device == "cuda" and not all(
+                t["ours"][k] for k in ("flash_fwd", "flash_dq", "flash_dkv"))):
+            fails.append(f"{what}: rank {i}'s trace: torch's attention {t['sdpa']}, the port's "
+                         f"kernels {t['ours']}")
     if "a2a_ms" in row:
         shares = [round(m / t["window_ms"], 4) if t["window_ms"] else None
                   for m, t in zip(row["a2a_ms"], row["trace"])]
@@ -430,7 +471,8 @@ def main(argv=None) -> int:
     log(json.dumps({"ok": not fails, "cards": procs, "rows": [
         {k: row.get(k) for k in ("name", "mesh", "losses", "step_s", "per_card_tokens_per_s",
                                  "mfu", "peak_bytes", "worst_rel", "routes", "a2a_ms",
-                                 "a2a_alone_ms", "restore_equal")} for row in rows]}))
+                                 "a2a_alone_ms", "restore_equal", "ppermute")}
+        for row in rows]}))
     return 0 if not fails else 1
 
 
@@ -450,20 +492,23 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
 
     def gather(row: dict, name: str, **extra) -> None:
         """Every rank's counters beside rank 0's row."""
-        mine = {k: row[k] for k in ("launches", "all_to_all", "peak_bytes")}
+        mine = {k: row.get(k) for k in ("launches", "all_to_all", "ppermute", "peak_bytes",
+                                        "expect")}
         ranks = [None] * n
         dist.all_gather_object(ranks, mine)
         row.update(name=name, ranks=ranks, **extra)
         rows.append(row)
         log(f"[n] rank {rank}: {name} done: losses {row['losses']}")
 
-    def layout(name: str, spec, argv: list, ref=None, moe=False, **extra) -> dict:
+    def layout(name: str, spec, argv: list, ref=None, moe=False, expect=None,
+               **extra) -> dict:
         if spec is None:
             os.environ.pop("JAX_MESH_SPEC", None)
         else:
             os.environ["JAX_MESH_SPEC"] = json.dumps(spec)
         mine = {} if moe else None
         row = train_llama(plan, argv, mine)
+        row["expect"] = expect
         if moe:
             # Every data rank's routes of its rows, in the one-card batch's
             # row order: the token file deals row j to data rank j mod N.
@@ -515,6 +560,10 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
            ref="bert", kernels=True)
 
     dcp_row(plan, tokens, tmp, ep, rows, gather, n)
+    if n == 4:
+        sequence_and_pipeline_rows(plan, tokens, tmp, layout, rows, rank)
+    else:
+        log(f"[n] the sp and pp rows need 4 cards; {n} here")
     if rank == 0:
         with open(os.path.join(tmp, "rows.json"), "w") as f:
             json.dump(rows, f)
@@ -524,12 +573,76 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
     return 0
 
 
+# Kernel names of torch's own attention (scaled_dot_product_attention's
+# flash, memory-efficient and cuDNN back ends): none may run in a ring row.
+SDPA_MARKS = ("pytorch_flash", "fmha", "sdpa", "efficient_attention")
+
+
+def ring_expect(layers: int, n: int, r: int) -> dict:
+    """Launches and permutes a step on ring rank r of n under "dots": r + 1
+    flash forwards a layer (the skipped blocks launch nothing), as many dQ
+    and dK/dV, 6 ropes (forward, replay, backward; q and k), and n - 1 K/V
+    rotations forward and n - 1 backward (the tape serves the replay's)."""
+    return {"flash_fwd": layers * (r + 1), "flash_dq": layers * (r + 1),
+            "flash_dkv": layers * (r + 1), "rope": 6 * layers, "ppermute": 2 * (n - 1) * layers}
+
+
+def pipe_expect(layers: int, pp: int, m: int, stage: int) -> dict:
+    """Launches and permutes a step on pipeline stage ``stage``: each of
+    its layers runs once a tick computed (T = M + pp - 1 ticks on the last
+    stage, T - 1 on the others) forward, dQ and dK/dV; T - 1 permutes
+    forward and as many backward."""
+    ticks = m + pp - 1
+    computed = (ticks if stage == pp - 1 else ticks - 1) * layers // pp
+    return {"flash_fwd": computed, "flash_dq": computed, "flash_dkv": computed,
+            "ppermute": 2 * (ticks - 1)}
+
+
+def sequence_and_pipeline_rows(plan: Plan, tokens: str, tmp: str, layout, rows: list,
+                               rank: int) -> None:
+    """The sp rows (llama at ``plan.long_seq``, ring attention) and the pp
+    rows (llama at ``plan.seq``, the GPipe pipeline) on 4 cards, each with
+    every rank's expected launches and permutes; the sp=4 run again,
+    traced, for the kernels' names."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models import llama
+
+    cfg = llama.CONFIGS[plan.llama]
+    long_args = llama_args(plan, plan.llama, tokens, long=True)
+    ring = []
+    for spec in ({"sp": 4}, {"sp": 2, "fsdp": 2}, {"sp": 2, "tp": 2}):
+        r = (rank // spec.get("tp", 1)) % spec["sp"]  # sp is outside tp, inside fsdp
+        ring.append(layout(f"{plan.llama} seq {plan.long_seq} " + " x ".join(
+            f"{a}={k}" for a, k in spec.items()), spec, long_args, ref="llama_long",
+            expect=ring_expect(cfg.n_layers, spec["sp"], r)))
+    os.environ["JAX_MESH_SPEC"] = json.dumps({"sp": 4})
+    mine = traced(plan, os.path.join(tmp, f"profile-ring-{rank}"), long_args)
+    row = ring[0]
+    row["trace"] = [None] * 4
+    dist.all_gather_object(row["trace"], mine)
+    base = cfg
+    for spec, m in (({"pp": 4}, 4), ({"pp": 4}, 8), ({"pp": 2, "fsdp": 2}, 0),
+                    ({"pp": 2, "tp": 2}, 0)):
+        pp = spec["pp"]
+        stage = rank * pp // 4  # pp is the outermost axis
+        llama.CONFIGS[plan.llama] = dataclasses.replace(base, pp_microbatches=m)
+        try:
+            layout(f"{plan.llama} " + " x ".join(f"{a}={k}" for a, k in spec.items())
+                   + f" M={m or pp}", spec, llama_args(plan, plan.llama, tokens), ref="llama",
+                   expect=pipe_expect(base.n_layers, pp, m or pp, stage))
+        finally:
+            llama.CONFIGS[plan.llama] = base
+
+
 def traced(plan: Plan, prof: str, argv: list) -> dict:
     """A llama_train run traced at steps 1-2 (``TPU_PROFILE_*``): per step,
     the window's ms (first kernel's start to last kernel's end), the
     busy ms of every kernel but NCCL's (the union of their intervals),
     the idle share that leaves, and the NCCL kernels' ms by name (their
-    time includes waiting for the slowest peer)."""
+    time includes waiting for the slowest peer); the names of any kernel
+    of torch's own attention, and the launches of each of the port's
+    kernels in the two steps."""
     os.environ.update(TPU_PROFILE_DIR=prof, TPU_PROFILE_START_STEP="1",
                       TPU_PROFILE_NUM_STEPS="2")
     try:
@@ -540,7 +653,11 @@ def traced(plan: Plan, prof: str, argv: list) -> dict:
     (trace,) = glob.glob(os.path.join(prof, "*.pt.trace.json"))
     kernels = [e for e in cs.read_json(trace)["traceEvents"] if e.get("cat") == "kernel"]
     if not kernels:
-        return {"window_ms": 0.0, "busy_ms": 0.0, "idle_share": None, "nccl_ms": {}}
+        return {"window_ms": 0.0, "busy_ms": 0.0, "idle_share": None, "nccl_ms": {},
+                "sdpa": [], "ours": {}}
+    sdpa = sorted({e["name"] for e in kernels if any(m in e["name"] for m in SDPA_MARKS)})
+    ours = {name: sum(sym in e["name"] and not any(m in e["name"] for m in SDPA_MARKS)
+                      for e in kernels) for name, sym in cs.KERNEL_SYMBOLS.items()}
     nccl, busy, end = {}, 0.0, -math.inf
     for e in sorted(kernels, key=lambda e: e["ts"]):
         if e["name"].startswith("nccl"):
@@ -551,7 +668,7 @@ def traced(plan: Plan, prof: str, argv: list) -> dict:
         end = max(end, stop)
     window = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 2e3
     return {"window_ms": window, "busy_ms": busy / 2e3, "idle_share": 1 - busy / 2e3 / window,
-            "nccl_ms": nccl}
+            "nccl_ms": nccl, "sdpa": sdpa, "ours": ours}
 
 
 def a2a_alone(plan: Plan, n: int) -> list:

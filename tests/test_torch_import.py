@@ -1,5 +1,5 @@
-"""The port stands alone: it imports with JAX, ``ml_dtypes``, orbax and the
-JAX package blocked, imports none of them anywhere, builds nothing at
+"""The port stands alone: it imports with JAX, ``ml_dtypes``, orbax,
+triton and the JAX package blocked, imports none of them anywhere, builds nothing at
 import, and its entry points refuse to run on the CPU unasked."""
 
 import ast
@@ -24,6 +24,7 @@ MODULES = [
     "tf_operator_tpu_torch.ops.rope",
     "tf_operator_tpu_torch.ops.flash",
     "tf_operator_tpu_torch.ops.attention",
+    "tf_operator_tpu_torch.ops.ring_attention",
     "tf_operator_tpu_torch.ops.cross_entropy",
     "tf_operator_tpu_torch.ops.remat",
     "tf_operator_tpu_torch.models.llama",
@@ -44,6 +45,8 @@ MODULES = [
     "tf_operator_tpu_torch.parallel.mesh",
     "tf_operator_tpu_torch.parallel.sharding",
     "tf_operator_tpu_torch.parallel.experts",
+    "tf_operator_tpu_torch.parallel.collectives",
+    "tf_operator_tpu_torch.parallel.pipeline",
     "tf_operator_tpu_torch.testing.rendezvous_workload",
     "tf_operator_tpu_torch.testing.parity_workload",
     "chip_smoke",
@@ -58,7 +61,9 @@ def run_python(code, cwd=ROOT, timeout=120):
 
 
 def test_imports_with_jax_and_the_jax_package_blocked():
-    blocked = "; ".join(f"sys.modules[{name!r}] = None" for name in sorted(FORBIDDEN))
+    # triton too: no module builds or imports a kernel at import.
+    blocked = "; ".join(f"sys.modules[{name!r}] = None"
+                        for name in sorted(FORBIDDEN | {"triton"}))
     code = (
         f"import sys; {blocked}\n"
         f"import importlib\n"

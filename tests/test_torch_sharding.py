@@ -3,11 +3,11 @@
 
 The tensor-parallel rules put tp where the JAX package's ``_PARAM_RULES``
 put it on every block weight; the embedding and the head differ by design
-(fsdp only). Axes the port does not have yet are refused; ``ep`` is kept,
-at size 1 too. Two 2-process gloo runs of the ``llama_train`` entry point
-on llama-tiny at fp32 under remat "dots", from a token file, one with
-mesh fsdp=2 (from the JAXJob env)
-and one with tp=2 (from a PyTorchJob's c10d env): the born-sharded weights
+(fsdp only). Every axis of the JAX package is kept, ``ep``, ``sp`` and
+``pp`` at size 1 too; only the JAX package's own refusals remain. Two
+2-process gloo runs of the ``llama_train`` entry point on llama-tiny at
+fp32 under remat "dots", from a token file, one with mesh fsdp=2 (from
+the JAXJob env) and one with tp=2 (from a PyTorchJob's c10d env): the born-sharded weights
 are bit-equal to the unsharded init, and the loss sequence of 5 steps is
 the single-process one (1e-5 relative: only the order of the sums
 differs). The lr warms up in 1 step, so the last 3 losses come from
@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from tf_operator_tpu.parallel.sharding import spec_for_param
-from tf_operator_tpu_torch.models import llama
+from tf_operator_tpu_torch.models import bert, llama
 from tf_operator_tpu_torch.parallel import mesh as port_mesh
 from tf_operator_tpu_torch.parallel import sharding
 from tf_operator_tpu_torch.train import data, llama_train
@@ -110,14 +110,38 @@ def test_tp_rules_match_the_jax_rules():
 
 
 def test_unported_axes_are_refused():
-    for axis, item in (("pp", "item 7d, pipeline"), ("sp", "item 7c, ring attention")):
-        with pytest.raises(NotImplementedError, match=item):
-            port_mesh.make_mesh(port_mesh.MeshSpec({"fsdp": 2, axis: 2}), "cpu")
+    # Every axis of the JAX package is ported: sp and pp are kept in the
+    # DeviceMesh, in AXIS_ORDER, as the JAX make_mesh keeps them.
+    assert not hasattr(port_mesh, "NOT_PORTED")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        kept = [port_mesh.mesh_axes(port_mesh.make_mesh(port_mesh.MeshSpec(axes), "cpu"))
+                for axes in ({"sp": 1}, {"pp": 1, "fsdp": 1})]
+        standard = port_mesh.mesh_axes(port_mesh.standard_mesh(1, device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert kept == [{"fsdp": 1, "sp": 1}, {"pp": 1, "fsdp": 1}]
+    assert standard == {"fsdp": 1}
+    with pytest.raises(ValueError, match="not divisible by slice\\*pp\\*dp\\*ep\\*sp\\*tp=4"):
+        port_mesh.standard_mesh(6, sp=2, pp=2, device_type="cpu")
+    # The refusals that remain are the JAX package's own: MoE and ring
+    # attention under a pipeline (models/llama.py), and BERT over any
+    # axis but the data axes.
+    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
+        sharding.check_shardable(bert.CONFIGS["bert-tiny"], {"fsdp": 1, "sp": 2})
+    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
+        sharding.check_shardable(bert.CONFIGS["bert-tiny"], {"pp": 2, "fsdp": 1})
+    ring = dataclasses.replace(llama.CONFIGS["llama-tiny"], attention_impl="ring")
+    sharding.check_shardable(ring, {"fsdp": 2, "sp": 2})
+    sharding.check_shardable(llama.CONFIGS["llama-tiny"], {"pp": 2, "fsdp": 2})
     with pytest.raises(ValueError, match="unknown mesh axis"):
         port_mesh.MeshSpec({"model": 2})
     # ep is ported: a declared ep is kept, at size 1 too, as the JAX
     # make_mesh keeps it; an MoE model's experts go over ep or tp.
-    assert "ep" not in port_mesh.NOT_PORTED
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]

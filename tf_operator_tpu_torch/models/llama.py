@@ -27,6 +27,10 @@ meta device, sharded, moved with ``to_empty`` and initialised by
 :meth:`Llama.init_weights`, which draws each parameter whole, in the
 unsharded order, and keeps the local shard: the sharded model holds
 exactly the unsharded one's weights (JAX's init is sharding-invariant too).
+Over ``sp`` the attention is the ring (``attention_impl="ring"``) and each
+rank's positions are offset by its place in the sequence; over ``pp`` the
+model is one pipeline stage (:class:`Llama` ``pp``/``stage``), whose
+layers run in the tick loop of ``parallel/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ from ..device import resolve_device
 from ..ops import attention as attn_ops
 from ..ops import remat
 from ..ops.cross_entropy import chunked_cross_entropy
+from ..ops.ring_attention import ring_attention
 from ..ops.rope import rope
 from ..parallel import experts as ep
+from ..parallel.pipeline import pipeline_apply, split_stages
 
 
 @dataclass(frozen=True)
@@ -66,7 +72,9 @@ class LlamaConfig:
     # joined by "+" with any of REMAT_SAVEABLE's tokens.
     remat_policy: str = "dots"
     # "pallas": the flash kernels (plain versions for CPU tensors); "xla":
-    # the plain reference attention; "ring" is not ported yet.
+    # the plain reference attention; "ring": ring attention over the sp
+    # group through the flash kernels (ops/ring_attention.py), plain causal
+    # flash without one.
     attention_impl: str = "pallas"
     # Mixture-of-experts FFN (0 = dense): top-k routing with a per-expert
     # capacity of capacity_factor * s * k / e slots (:class:`MoE`).
@@ -81,6 +89,10 @@ class LlamaConfig:
     # Grouped dispatch: tokens route in independent groups of this many
     # positions when it divides a longer sequence (0 = one group).
     moe_group_size: int = 0
+    # Microbatches per pipeline round over a pp group (0 = one per stage):
+    # more shrink the GPipe bubble ((pp-1)/(M+pp-1)) at the cost of smaller
+    # per-stage matmuls.
+    pp_microbatches: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -169,9 +181,12 @@ REMAT_SAVEABLE = {
     "norms": ("norm_out",),
 }
 # What "dots" keeps: the outputs of the Dense layers (the counterpart of
-# dots_with_no_batch_dims_saveable: products with no batch dimension) and
-# the flash forward's (o, lse), which the JAX model tags flash_o/flash_lse.
-_DOTS = ("dots", "flash")
+# dots_with_no_batch_dims_saveable: products with no batch dimension), the
+# flash forward's (o, lse), which the JAX model tags flash_o/flash_lse, and
+# the K/V blocks that ring attention received (the JAX model's replay
+# rotates them again; keeping them spares the replay n - 1 rotations a
+# layer for (n - 1) K/V blocks of memory).
+_DOTS = ("dots", "flash", "ring")
 
 
 def _remat_policy(cfg: LlamaConfig) -> frozenset:
@@ -312,9 +327,14 @@ class Dense(nn.Linear):
 
 
 class Attention(nn.Module):
+    """Causal GQA attention. ``sp_group`` (set by
+    ``parallel/sharding.shard_model`` on a mesh with ``sp``) is the ring of
+    ``attention_impl="ring"``."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.sp_group = None
         hd = cfg.head_dim
         # Three separate projections, as the JAX model keeps them.
         self.wq = Dense(cfg, cfg.dim, cfg.n_heads * hd, device)
@@ -335,6 +355,8 @@ class Attention(nn.Module):
         k = apply_rope(k, cos, sin, "rope_k")
         if cfg.attention_impl == "pallas":
             out = attn_ops.flash_attention(q, k, v, causal=True)
+        elif cfg.attention_impl == "ring":
+            out = ring_attention(q, k, v, self.sp_group)
         else:
             out = attn_ops.xla_attention(q, k, v, causal=True)
         return self.wo(out.reshape(b, s, -1))
@@ -551,50 +573,109 @@ class Block(nn.Module):
         return self._forward(x, cos, sin)
 
 
+# The JAX model's refusals of a pipeline over pp (its ``Llama.__call__``),
+# with its reasons.
+PP_REFUSALS = {
+    "moe": "MoE + pipeline parallelism is not supported yet (the blocks' sown aux losses "
+           "don't cross the pipeline)",
+    "ring": "ring attention + pipeline parallelism is not supported yet (a nested "
+            "full-mesh shard_map is illegal inside the pp-manual region)",
+}
+
+
 class Llama(nn.Module):
     """Decoder stack. Weights are drawn from ``generator`` (normal(0.02)
     for every matrix, ones for the norm scales), on ``device``: ``cuda``
     unless the caller asks for the CPU, or ``meta`` (shapes only, drawn
-    nothing) for a model that is sharded before it is initialised."""
+    nothing) for a model that is sharded before it is initialised.
+
+    With ``pp`` above 1 the model is stage ``stage`` of a pipeline
+    (``parallel/pipeline.py``): it keeps only its ``n_layers / pp``
+    contiguous layers, under their unsharded names (``layers.{i}``, in a
+    ``ModuleDict``), so that its checkpoint restores into a model without
+    a pipeline, as the JAX model's "checkpoints are interchangeable"; the
+    embedding lives on stage 0, the final norm and the head on the last
+    stage (the JAX model keeps both on every stage: a layout difference,
+    the same loss). ``pp_group`` (set by ``parallel/sharding.shard_model``)
+    is the pipeline's group; without it a pipelined model cannot run.
+    ``sp_rank``/``sp_size`` (also set there) place the local sequence at
+    positions ``[sp_rank * s, (sp_rank + 1) * s)``."""
 
     def __init__(self, config: LlamaConfig, device=None,
-                 generator: Optional[torch.Generator] = None, pp: int = 1):
+                 generator: Optional[torch.Generator] = None, pp: int = 1, stage: int = 0):
         super().__init__()
-        if config.attention_impl == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP Queue 1 item 7c, ring attention)")
-        if config.attention_impl not in ("pallas", "xla"):
+        if config.attention_impl not in ("pallas", "xla", "ring"):
             raise ValueError(f"unknown attention_impl {config.attention_impl!r}")
         if pp > 1:
-            raise NotImplementedError(
-                "pipeline parallelism is not ported yet (ROADMAP Queue 1 item 7d, pipeline)")
+            if config.n_experts:
+                raise NotImplementedError(PP_REFUSALS["moe"])
+            if config.attention_impl == "ring":
+                raise NotImplementedError(PP_REFUSALS["ring"])
+        if not 0 <= stage < pp:
+            raise ValueError(f"stage {stage} of {pp} pipeline stages")
         meta = device is not None and torch.device(device).type == "meta"
         device = torch.device("meta") if meta else resolve_device(device)
         self.config = config
+        self.stages, self.stage = pp, stage
+        self.pp_group = None
+        self.sp_rank, self.sp_size = 0, 1
+        first, last = stage == 0, stage == pp - 1
         self.tok_embeddings = nn.Embedding(
-            config.vocab_size, config.dim, device=device, dtype=config.param_dtype)
-        self.layers = nn.ModuleList(Block(config, device) for _ in range(config.n_layers))
-        self.norm = RMSNorm(config.dim, config.norm_eps, config.param_dtype, device)
-        self.output = Dense(config, config.dim, config.vocab_size, device)
+            config.vocab_size, config.dim, device=device,
+            dtype=config.param_dtype) if first else None
+        if pp == 1:
+            self.layers = nn.ModuleList(Block(config, device) for _ in range(config.n_layers))
+        else:
+            mine = split_stages(range(config.n_layers), pp)[stage]
+            self.layers = nn.ModuleDict({str(i): Block(config, device) for i in mine})
+        self.norm = RMSNorm(config.dim, config.norm_eps, config.param_dtype,
+                            device) if last else None
+        self.output = Dense(config, config.dim, config.vocab_size, device) if last else None
         if not meta:
             self.init_weights(generator)
 
+    def blocks(self) -> list:
+        """This model's layers, in order."""
+        return list(self.layers.values() if isinstance(self.layers, nn.ModuleDict)
+                    else self.layers)
+
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
-        """Draw every parameter in ``named_parameters`` order. A sharded
-        parameter (DTensor) is drawn whole on its local device, as the
-        unsharded model draws it, and keeps its own shard of it."""
-        for name, p in self.named_parameters():
+        """Draw every parameter of the whole model in ``named_parameters``
+        order; a pipeline stage keeps its own and draws the others only to
+        advance ``generator``. A sharded parameter (DTensor) is drawn whole
+        on its local device, as the unsharded model draws it, and keeps its
+        own shard of it."""
+        own = dict(self.named_parameters())
+        first = next(iter(own.values()))
+        device = (first.to_local() if isinstance(first, DTensor) else first).device
+        whole = self if self.stages == 1 else Llama(self.config, device="meta")
+        for name, p in whole.named_parameters():
             if name.endswith(".scale") or name == "scale":
-                p.fill_(1.0)
-            elif isinstance(p, DTensor):
-                full = torch.empty(p.shape, dtype=p.dtype, device=p.to_local().device)
+                if name in own:
+                    own[name].fill_(1.0)
+                continue
+            p = own.get(name)
+            if isinstance(p, DTensor):
+                full = torch.empty(p.shape, dtype=p.dtype, device=device)
                 full.normal_(0.0, 0.02, generator=generator)
                 local = distribute_tensor(full, p.device_mesh, p.placements,
                                           src_data_rank=None)
                 p.to_local().copy_(local.to_local())
-            else:
+            elif p is not None:
                 p.normal_(0.0, 0.02, generator=generator)
+            else:  # another stage's
+                shape = whole.get_parameter(name).shape
+                torch.empty(shape, dtype=self.config.param_dtype,
+                            device=device).normal_(0.0, 0.02, generator=generator)
+
+    def _stage(self, stage: int, x, cos, sin):
+        """This stage's layers on ``x``: ``parallel/pipeline.py``'s stage
+        function, called with this rank's stage (a pipelined model holds
+        its own stage's layers only)."""
+        for layer in self.layers.values():
+            x, _ = layer(x, cos, sin)
+        return x
 
     def forward(self, tokens, targets=None, return_hidden: bool = False,
                 return_aux: bool = False):
@@ -604,17 +685,27 @@ class Llama(nn.Module):
         (``chunked_cross_entropy``) inside this forward, where a sharded
         head is gathered; with ``return_hidden``, the pre-logits hidden
         states. ``return_aux`` returns ``(logits or hidden, aux)``, the sum
-        of the layers' load-balancing losses (None for a dense model)."""
+        of the layers' load-balancing losses (None for a dense model).
+
+        On a pipeline stage other than the last, the loss is 0 and the
+        other outputs are zeros of the hidden state's shape: their backward
+        drives the stage's."""
         cfg = self.config
-        s = tokens.shape[1]
-        x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
-        positions = torch.arange(s, device=tokens.device)[None]
+        b, s = tokens.shape
+        offset = self.sp_rank * s
+        positions = torch.arange(offset, offset + s, device=tokens.device)[None]
         cos, sin = gather_rope(cfg, positions)
+        if self.stages > 1:
+            return self._pipelined(tokens, targets, cos, sin, return_hidden, return_aux)
+        x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
         aux = None
         for layer in self.layers:
             x, layer_aux = layer(x, cos, sin)
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
+        return self._head(x, targets, return_hidden, return_aux, aux)
+
+    def _head(self, x, targets, return_hidden, return_aux, aux=None):
         x = self.norm(x)
         if targets is not None:
             # The [b, s, vocab] fp32 logits never exist whole.
@@ -623,3 +714,21 @@ class Llama(nn.Module):
         out = x if return_hidden else self.output(x).float()
         return (out, aux) if return_aux else out
 
+    def _pipelined(self, tokens, targets, cos, sin, return_hidden, return_aux):
+        cfg = self.config
+        if self.pp_group is None:
+            raise RuntimeError("a pipeline stage runs over its pp group: shard the model "
+                               "over a mesh with pp (parallel/sharding.shard_model)")
+        b, s = tokens.shape
+        if self.stage == 0:
+            x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
+        else:
+            x = torch.zeros(b, s, cfg.dim, dtype=cfg.dtype, device=tokens.device)
+        x = pipeline_apply(self._stage, x, cos, sin,
+                           num_microbatches=cfg.pp_microbatches or self.stages,
+                           group=self.pp_group)
+        if self.stage == self.stages - 1:
+            return self._head(x, targets, return_hidden, return_aux)
+        if targets is not None:
+            return x.sum(dtype=torch.float32)
+        return (x, None) if return_aux else x

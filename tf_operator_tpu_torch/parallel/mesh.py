@@ -3,15 +3,16 @@
 ``DeviceMesh``, one process per GPU.
 
 The canonical axes, outermost to innermost, are the JAX package's
-(``AXIS_ORDER``). The port supports ``slice``, ``dp``, ``fsdp`` and ``ep``
-(data parallelism: ``fsdp`` with parameters and optimizer state sharded by
-FSDP2, ``ep`` with an MoE model's experts placed over it,
-``parallel/sharding.py``) and ``tp`` (tensor parallelism, innermost so
-that its collectives stay on the fastest links). ``pp`` and ``sp`` above
-size 1 are refused until their modules are ported. An axis the job
-declared is kept even at size 1, as the JAX ``make_mesh`` keeps it, and
-the DeviceMesh always carries an ``fsdp`` dim, of size 1 when the job
-declared none, so that FSDP2 has its shard dim on every layout.
+(``AXIS_ORDER``), all of them supported: ``slice``, ``dp``, ``fsdp`` and
+``ep`` (data parallelism: ``fsdp`` with parameters and optimizer state
+sharded by FSDP2, ``ep`` with an MoE model's experts placed over it,
+``parallel/sharding.py``), ``pp`` (pipeline stages,
+``parallel/pipeline.py``), ``sp`` (the sequence, ring attention,
+``ops/ring_attention.py``) and ``tp`` (tensor parallelism, innermost so
+that its collectives stay on the fastest links). An axis the job declared
+is kept even at size 1, as the JAX ``make_mesh`` keeps it, and the
+DeviceMesh always carries an ``fsdp`` dim, of size 1 when the job declared
+none, so that FSDP2 has its shard dim on every layout.
 """
 
 from __future__ import annotations
@@ -23,10 +24,6 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 AXIS_ORDER = ("slice", "pp", "dp", "fsdp", "ep", "sp", "tp")
-NOT_PORTED = {
-    "pp": "pipeline parallelism is not ported yet (ROADMAP Queue 1 item 7d, pipeline)",
-    "sp": "sequence parallelism is not ported yet (ROADMAP Queue 1 item 7c, ring attention)",
-}
 
 
 @dataclass
@@ -54,37 +51,38 @@ class MeshSpec:
 def make_mesh(spec: MeshSpec, device_type: str = "cuda") -> DeviceMesh:
     """A DeviceMesh of ``spec`` over every rank of the default process
     group; an empty spec is pure data parallelism, as in the JAX package."""
-    for axis, why in NOT_PORTED.items():
-        if spec.axes.get(axis, 1) > 1:
-            raise NotImplementedError(f"mesh axis {axis!r}: {why}")
     n = dist.get_world_size()
     if not spec.axes:
         spec = MeshSpec({"dp": n})
     if spec.size != n:
         raise ValueError(f"mesh {spec.axes} needs {spec.size} devices, have {n}")
-    axes = {a: size for a, size in spec.ordered() if a not in NOT_PORTED}
+    axes = dict(spec.ordered())
     axes.setdefault("fsdp", 1)
     names = tuple(a for a in AXIS_ORDER if a in axes)
     return init_device_mesh(device_type, tuple(axes[a] for a in names),
                             mesh_dim_names=names)
 
 
-def standard_mesh(n_devices: Optional[int] = None, tp: int = 1, dp: int = 1,
-                  num_slices: int = 1, device_type: str = "cuda") -> DeviceMesh:
+def standard_mesh(n_devices: Optional[int] = None, tp: int = 1, sp: int = 1, dp: int = 1,
+                  ep: int = 1, pp: int = 1, num_slices: int = 1,
+                  device_type: str = "cuda") -> DeviceMesh:
     """Mesh with fsdp absorbing whatever the explicit axes don't cover: the
     default for LLM training (FSDP-dominant, TP innermost)."""
     n = n_devices or dist.get_world_size()
-    denom = tp * dp * num_slices
+    denom = tp * sp * dp * ep * pp * num_slices
     if n % denom:
-        raise ValueError(f"{n} devices not divisible by slice*dp*tp={denom}")
+        raise ValueError(f"{n} devices not divisible by slice*pp*dp*ep*sp*tp={denom}")
     axes = {}
     if num_slices > 1:
         axes["slice"] = num_slices
+    if pp > 1:
+        axes["pp"] = pp
     if dp > 1:
         axes["dp"] = dp
     axes["fsdp"] = n // denom
-    if tp > 1:
-        axes["tp"] = tp
+    for name, size in (("ep", ep), ("sp", sp), ("tp", tp)):
+        if size > 1:
+            axes[name] = size
     return make_mesh(MeshSpec(axes), device_type)
 
 

@@ -8,10 +8,21 @@ lets XLA insert the collectives, the port applies two torch mechanisms:
 - tensor parallelism over ``tp`` (DTensor plans per block): the megatron
   layout of the JAX rules, wq/wk/wv/w1/w3 column-wise (their output
   features over tp) and wo/w2 row-wise (their input features over tp);
-- FSDP2 ``fully_shard`` over ``fsdp`` (with ``ep`` folded in: an MoE
-  model's tokens differ over ``ep``, so every dense gradient averages over
-  it too) on each block and on the root, as HSDP with ``slice``/``dp`` as
-  the replicate dim.
+- FSDP2 ``fully_shard`` over ``fsdp`` (with ``ep`` and ``sp`` folded in:
+  an MoE model's tokens differ over ``ep``, and each ``sp`` rank holds its
+  own piece of the sequence, so every gradient averages over both too) on
+  each block and on the root, as HSDP with ``slice``/``dp`` as the
+  replicate dim.
+
+Over ``sp`` the model runs ring attention (``attention_impl="ring"``)
+over the ``sp`` group, each rank's positions offset by its place in the
+sequence; ``sp`` is not a data axis (``DATA_AXES``): the ranks of one
+``sp`` group read the same rows, as the JAX package's
+``batch_sharding(with_sp=False)`` gives them. Over ``pp`` the model is
+one pipeline stage (``Llama(pp=, stage=)``) and every plan above applies
+over the stage's own submesh, never across ``pp``: a DeviceMesh's dim
+names the ranks that share this rank's other coordinates, its stage among
+them.
 
 The embedding and the output head are sharded over fsdp only, replicated
 over tp, where the JAX rules also put their d (embedding) or vocab (head)
@@ -154,13 +165,13 @@ def _group(mesh: DeviceMesh, dims: tuple):
 
 
 def _fsdp_mesh(mesh: DeviceMesh, fold_ep: bool = True) -> DeviceMesh:
-    """The mesh FSDP2 shards over: ``fsdp``, with ``ep`` above 1 folded in
-    when ``fold_ep`` (``ep`` alone when ``fsdp`` is 1), and ``slice``/``dp``
-    (flattened into one dim when both are present) as HSDP's replicate
-    dim."""
-    shard = ("fsdp",)
-    if fold_ep and "ep" in mesh.mesh_dim_names and mesh["ep"].size() > 1:
-        shard = ("fsdp", "ep") if mesh["fsdp"].size() > 1 else ("ep",)
+    """The mesh FSDP2 shards over: ``fsdp``, with ``ep`` (when
+    ``fold_ep``) and ``sp`` above 1 folded in (without ``fsdp`` when it is
+    1), and ``slice``/``dp`` (flattened into one dim when both are present)
+    as HSDP's replicate dim."""
+    folded = tuple(a for a in _present(mesh, ("ep", "sp"))
+                   if mesh[a].size() > 1 and (fold_ep or a != "ep"))
+    shard = ("fsdp", *folded) if mesh["fsdp"].size() > 1 or not folded else folded
     rep = _present(mesh, _REPLICATE_AXES)
     if not rep:
         return _flat(mesh, shard)
@@ -169,14 +180,26 @@ def _fsdp_mesh(mesh: DeviceMesh, fold_ep: bool = True) -> DeviceMesh:
 
 
 def check_shardable(config, axes: dict) -> None:
-    """Refuse a layout the port cannot shard ``config`` over yet: a BERT
-    model over any axis but the data axes."""
+    """Refuse a layout the port cannot shard ``config`` over: a BERT model
+    over any axis but the data axes (not ported yet); over ``sp``, a model
+    whose attention is not the ring (the sequence is never gathered
+    silently) or an MoE model (not ported yet)."""
     if isinstance(config, BertConfig):
         other = {a: n for a, n in axes.items() if a not in DATA_AXES and n > 1}
         if other:
             raise NotImplementedError(
                 f"BERT over mesh {axes}: BERT's step is data parallel; BERT over {other} is "
                 "not ported yet (ROADMAP Queue 1 item 3c, BERT over tp)")
+        return
+    if axes.get("sp", 1) > 1:
+        if config.attention_impl != "ring":
+            raise ValueError(
+                f"attention_impl={config.attention_impl!r} over mesh {axes}: each sp rank "
+                "holds a piece of the sequence; over sp the model runs attention_impl='ring'")
+        if config.n_experts:
+            raise NotImplementedError(
+                f"MoE over mesh {axes}: MoE over sp is not ported yet (ROADMAP Queue 1 "
+                "item 7f, MoE over sp)")
 
 
 # Expert weights [e, d, f] (w1, w3) and [e, f, d] (w2): the dims of f and d.
@@ -232,17 +255,36 @@ def place_experts(moe: nn.Module, mesh: DeviceMesh) -> Optional[set]:
     return {getattr(moe, n) for n in _F_DIM}
 
 
+def _sequence_and_stages(model: nn.Module, mesh: DeviceMesh) -> None:
+    """Give ``model`` its ring (``sp``) and its pipeline (``pp``) groups."""
+    axes = mesh_axes(mesh)
+    pp = axes.get("pp", 1)
+    if model.stages != pp:
+        raise ValueError(f"a model of {model.stages} pipeline stages over mesh {axes}")
+    if pp > 1:
+        if model.stage != mesh.get_local_rank("pp"):
+            raise ValueError(f"stage {model.stage} on the mesh's pp rank "
+                             f"{mesh.get_local_rank('pp')}")
+        model.pp_group = mesh["pp"].get_group()
+    if axes.get("sp", 1) > 1:
+        model.sp_rank, model.sp_size = mesh.get_local_rank("sp"), axes["sp"]
+        for block in model.blocks():
+            block.attention.sp_group = mesh["sp"].get_group()
+
+
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
-    """Shard ``model`` (a Llama, before its storage exists: on the meta
-    device) over ``mesh`` in place: tensor-parallel plans on each block
-    over ``tp`` when it is above 1, then FSDP2 on each MoE router, the
-    experts placed (``expert_layout``), FSDP2 on each block and the root."""
+    """Shard ``model`` (a Llama, or one pipeline stage of it, before its
+    storage exists: on the meta device) over ``mesh`` in place: its ring
+    and pipeline groups, tensor-parallel plans on each block over ``tp``
+    when it is above 1, then FSDP2 on each MoE router, the experts placed
+    (``expert_layout``), FSDP2 on each block and the root."""
     check_shardable(model.config, mesh_axes(mesh))
+    _sequence_and_stages(model, mesh)
     if "tp" in mesh.mesh_dim_names and mesh["tp"].size() > 1:
-        for block in model.layers:
+        for block in model.blocks():
             parallelize_module(block, mesh["tp"], _tp_plan(block))
     fsdp = _fsdp_mesh(mesh)
-    for block in model.layers:
+    for block in model.blocks():
         ignored = None
         if block.moe:
             fully_shard(block.feed_forward.router, mesh=fsdp)

@@ -110,10 +110,12 @@ class HostSnapshot:
 
 
 def is_sharded(state) -> bool:
-    """True when some parameter is a DTensor over more than one rank: no
-    process holds the state whole (module doc, storage)."""
-    return any(isinstance(p, DTensor) and p.device_mesh.size() > 1
-               for p in state.model.parameters())
+    """True when some parameter is a DTensor over more than one rank, or
+    the model is one stage of a pipeline: no process holds the state whole
+    (module doc, storage)."""
+    return getattr(state.model, "stages", 1) > 1 or any(
+        isinstance(p, DTensor) and p.device_mesh.size() > 1
+        for p in state.model.parameters())
 
 
 def take_snapshot(state, step: int, model_meta: Optional[dict] = None) -> HostSnapshot:

@@ -16,6 +16,10 @@ the declared mesh; whenever a process group is up, the train state is born
 sharded over it (FSDP2 over the data axes, tensor parallelism over ``tp``)
 and each rank reads the batch of its data-parallel coordinate: ``--batch``
 is global, and each rank takes ``--batch`` over the data-parallel size.
+Over ``sp`` the ranks of one ring read the same rows, each training on its
+piece of the sequence through ring attention, which the mesh's ``sp``
+picks (:func:`pick_attention`); over ``pp`` each rank builds and holds its
+own pipeline stage. The start line names the attention and the pipeline.
 Batches come from ``SyntheticTokens`` or, with ``--data``, from a token
 file through the native loader, and reach the card through
 ``DevicePrefetch``. Prints the JAX script's ``[llama] process i/n
@@ -135,6 +139,16 @@ def default_model(device_type: str, world: int) -> str:
     return "llama2-7b" if world >= LLAMA2_7B_MIN_WORLD else "llama-400m"
 
 
+def pick_attention(config: llama.LlamaConfig, axes: dict) -> llama.LlamaConfig:
+    """The config a mesh runs: over ``sp`` above 1 a model whose attention
+    is the default "pallas" runs "ring" (each rank holds a piece of the
+    sequence); any other attention over sp is refused when the model is
+    sharded (``parallel/sharding.check_shardable``), never gathered."""
+    if axes.get("sp", 1) > 1 and config.attention_impl == "pallas":
+        return dataclasses.replace(config, attention_impl="ring")
+    return config
+
+
 @dataclasses.dataclass
 class Setup:
     """What a run needs, from :func:`setup`."""
@@ -233,8 +247,11 @@ def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
         state = init_train_state(llama.Llama(config, device=device, generator=generator),
                                  optimizer)
     else:
-        state = init_sharded_train_state(llama.Llama(config, device="meta"), optimizer,
-                                         mesh, device, generator)
+        config = pick_attention(config, mesh_axes(mesh))
+        pp = mesh_axes(mesh).get("pp", 1)
+        stage = mesh.get_local_rank("pp") if pp > 1 else 0
+        state = init_sharded_train_state(llama.Llama(config, device="meta", pp=pp, stage=stage),
+                                         optimizer, mesh, device, generator)
     ckpt = shard_srv = outcome = None
     if args.checkpoint_dir:
         # The restore runs BEFORE the dataset is built: skip_windows reads
@@ -278,6 +295,17 @@ def run(args: argparse.Namespace, s: Optional[Setup] = None) -> dict:
         heartbeat.flush()
 
 
+def attention_note(config: llama.LlamaConfig, mesh: dict) -> str:
+    """The attention a run uses and, over sp or pp, why and how."""
+    note = config.attention_impl
+    if mesh.get("sp", 1) > 1:
+        note += f" (over sp={mesh['sp']}: the mesh's sp picks the ring)"
+    if mesh.get("pp", 1) > 1:
+        note += (f" pipeline=pp{mesh['pp']}x{config.n_layers // mesh['pp']} layers, "
+                 f"{config.pp_microbatches or mesh['pp']} microbatches")
+    return note
+
+
 def _train(args: argparse.Namespace, s: Setup) -> dict:
     world = dist.get_world_size() if dist.is_initialized() else 1
     device = torch.device(s.batches.device)
@@ -288,7 +316,8 @@ def _train(args: argparse.Namespace, s: Setup) -> dict:
     print(f"[llama] process {s.topology.process_id}/{s.topology.num_processes} "
           f"devices={world} mesh={mesh}{slice_note} device={device} ({name}) "
           f"model={args.model} params={s.config.param_count():,} "
-          f"remat_policy={s.config.remat_policy}", flush=True)
+          f"remat_policy={s.config.remat_policy} attention={attention_note(s.config, mesh)}",
+          flush=True)
     save_seconds = []
     state = s.state
     start, last = state.step, args.steps - 1

@@ -43,8 +43,18 @@ def loss_fn(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token LM loss: predict tokens[:, 1:] from tokens[:, :-1]. The
     model applies its head per chunk inside its own forward
     (``Llama.forward(targets=...)``), where FSDP2 has gathered a sharded
-    head; read from outside, the head would be this rank's shard."""
-    return model(tokens[:, :-1], targets=tokens[:, 1:])
+    head; read from outside, the head would be this rank's shard. Over
+    ``sp`` each rank takes its piece of the shifted sequence: the mean of
+    the ranks' losses is the whole sequence's."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    n = getattr(model, "sp_size", 1)
+    if n > 1:
+        s = inputs.shape[1]
+        if s % n:
+            raise ValueError(f"sequence {s} not divisible by sp={n}")
+        piece = slice(model.sp_rank * s // n, (model.sp_rank + 1) * s // n)
+        inputs, targets = inputs[:, piece], targets[:, piece]
+    return model(inputs, targets=targets)
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -53,33 +63,33 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _copies(g: DTensor) -> int:
-    """Ranks of the world that hold each element of ``g``: the world over
-    the product of the mesh dims that shard it. FSDP2 shards a tensor-
-    parallel weight's tp-sharded dim again as ``_StridedShard``, which
-    ``is_shard()`` does not count: every placement but ``Replicate``
-    shards."""
+def _copies(g: DTensor, stages: int = 1) -> int:
+    """Ranks of the world that hold each element of ``g``: the world (over
+    the pipeline's ``stages``: only one stage holds ``g``) over the product
+    of the mesh dims that shard it. FSDP2 shards a tensor-parallel weight's
+    tp-sharded dim again as ``_StridedShard``, which ``is_shard()`` does
+    not count: every placement but ``Replicate`` shards."""
     shards = 1
     for dim, placement in enumerate(g.placements):
         if placement.is_partial():
             raise ValueError(f"gradient with a pending reduction {g.placements}")
         if not placement.is_replicate():
             shards *= g.device_mesh.size(dim)
-    return dist.get_world_size() // shards
+    return dist.get_world_size() // stages // shards
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, stages: int = 1) -> torch.Tensor:
     """fp32 L2 norm over every element of ``grads``. Sharded gradients
     (DTensors; a sharded model has no other kind) count each element once
     over the whole world: each rank's squared norm of its shard is divided
     by the number of ranks that hold a copy of it, and one all-reduce sums
-    the ranks' shares."""
+    the ranks' shares, over the ``stages`` of a pipeline too."""
     grads = list(grads)
     norms = torch.stack([torch.linalg.vector_norm(_local(g), dtype=torch.float32)
                          for g in grads])
     if not isinstance(grads[0], DTensor):
         return torch.linalg.vector_norm(norms)
-    copies = torch.tensor([_copies(g) for g in grads], dtype=torch.float32,
+    copies = torch.tensor([_copies(g, stages) for g in grads], dtype=torch.float32,
                           device=norms.device)
     total = (norms.square() / copies).sum()
     dist.all_reduce(total)
@@ -129,13 +139,14 @@ class AdamW:
         )
 
     @torch.no_grad()
-    def update_(self, params, grads, state: OptState) -> OptState:
+    def update_(self, params, grads, state: OptState, stages: int = 1) -> OptState:
         """One update, in place on ``params`` (their local shards, for
-        DTensors) and the state's moments."""
+        DTensors) and the state's moments; ``stages``: the pipeline's, of
+        which ``params`` are one stage's."""
         grads = list(grads)
         if self.grad_clip is not None:
             # optax: t if norm < clip else (t / norm) * clip, with no epsilon.
-            norm = global_norm(grads)
+            norm = global_norm(grads, stages)
             factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
         params, grads = [_local(p) for p in params], [_local(g) for g in grads]
         if self.grad_clip is not None:
@@ -241,7 +252,10 @@ def make_train_step(optimizer: AdamW, loss=loss_fn, replica_group=None):
     example's ids, labels and mask); a host batch moves to the model's
     device, and a batch already there (``data.DevicePrefetch``) is only
     cast to int64 in place of a copy. On a sharded model the loss returned
-    is the mean over all ranks: the global batch's loss. With
+    is the global batch's: the mean over all ranks (each ``sp`` rank's of
+    its piece of the sequence), where over a pipeline only the last
+    stage's ranks hold a loss. The reduction is one all-reduce of a scalar
+    on the device; the host reads nothing. With
     ``replica_group`` the model is replicated over that group (data
     parallel, ``parallel/sharding.data_parallel_group``): the gradients
     and the loss returned are averaged over it before the update."""
@@ -257,16 +271,19 @@ def make_train_step(optimizer: AdamW, loss=loss_fn, replica_group=None):
         value.backward()
         if replica_group is not None:
             average_gradients(params, replica_group)
-        opt_state = optimizer.update_(params, [p.grad for p in params], state.opt_state)
+        stages = getattr(model, "stages", 1)
+        opt_state = optimizer.update_(params, [p.grad for p in params], state.opt_state,
+                                      stages)
         value = value.detach()
         if replica_group is not None:
             dist.all_reduce(value, group=replica_group)
             value = value / dist.get_world_size(replica_group)
         elif isinstance(params[0], DTensor):
             # Ranks of one tensor-parallel group hold the same loss, so the
-            # world's mean is the data-parallel mean.
+            # world's mean is the data-parallel mean; of a pipeline's
+            # stages, the last holds the loss and the others 0.
             dist.all_reduce(value)
-            value = value / dist.get_world_size()
+            value = value * stages / dist.get_world_size()
         return TrainState(state.step + 1, model, opt_state), value
 
     return step
