@@ -137,7 +137,19 @@ Phases (any failure raises and the script exits non-zero):
       flash kernels, the lse combine and its backward with dlse; the
       output and dQ/dK/dV against one causal flash call over the whole
       sequence at phase c's tolerances; r + 1 forward, dQ and dK/dV
-      launches on ring rank r; each rank's forward and backward ms.
+      launches on ring rank r; each rank's forward and backward ms;
+  (p) ResNet and MNIST: resnet50 from one set of seeded weights at bs 2,
+      224x224, one training step on the card (bf16, channels_last) against
+      the CPU (fp32): the loss and the gradient norms of the convolutions
+      and the head at phase d's tolerances, the BatchNorms' gradient
+      norms, the whole gradient and each BatchNorm's batch mean and
+      variance within RESNET_TOL; resnet_train at resnet50, 224x224, global batch
+      256 (a 2-step warm-up run, then 7 steps, the window after the
+      first): finite losses, step time, images/s, MFU (3 x the forward's
+      convolution and head FLOPs) and peak memory; the host's draw of one
+      batch, the step on a resident batch, and as a yardstick that step
+      under torch.compile; mnist_train with the manifest's arguments
+      (--steps=600 --batch=256 --target-accuracy=0.95) must exit 0.
 
 Phases e-m each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
@@ -1300,6 +1312,169 @@ def phase_o(build) -> None:
         f"sequence {whole_ms:.4f} ms ({sum(rank_ms) / whole_ms:.3f}x)")
 
 
+# Phase (p): ResNet and MNIST, the JAX package's last two model families.
+# ResNet-50 card (bf16, channels_last) against CPU (fp32) at bs 2, 224x224,
+# one training step's forward and backward, from the port's seeded init
+# with each block's last BatchNorm scale at 0.1 (its init's 0 would zero
+# the gradient of every layer of the block's branch). The loss and each
+# convolution's and the head's gradient norm at PARITY_TOL. A BatchNorm's
+# scale and bias gradients are sums over the batch of a gradient whose
+# per-channel mean the next BatchNorm's backward removed: their norms are
+# small differences of large sums, and bf16's rounding of the incoming
+# gradient (2^-8) shows there at up to 0.11 (the same step in bf16 on the
+# CPU against fp32), so RESNET_TOL holds them at 0.25, the whole gradient
+# at 0.2 relative in L2 (0.084 there), and each BatchNorm's batch mean and
+# variance (read back from the running update) at 2e-2 (0.009 there).
+RESNET = dict(model="resnet50", image=224, batch=256, warmup=2, steps=7)
+RESNET_TOL = {"norm_grad": 0.25, "grad": 0.2, "stats": 2e-2}
+MNIST_ARGS = ["--steps=600", "--batch=256", "--target-accuracy=0.95"]  # jaxjob_mnist.yaml
+
+
+def resnet_parity() -> None:
+    """resnet50 from the port's seed-0 init (each block's last BatchNorm
+    scale at 0.1): one training-mode forward and backward at bs 2 on the
+    card (bf16, channels_last) and on the CPU (fp32), within PARITY_TOL
+    and RESNET_TOL."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tf_operator_tpu_torch.models import resnet
+
+    cfg = resnet.CONFIGS[RESNET["model"]]
+    cpu_model = resnet.ResNet(dataclasses.replace(cfg, dtype=torch.float32), device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    norms = {n for n, m in cpu_model.named_modules() if isinstance(m, resnet.BatchNorm)}
+    with torch.no_grad():
+        for n in norms:
+            m = cpu_model.get_submodule(n)
+            if m.zero_scale:
+                m.weight.fill_(0.1)
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    gpu_model = resnet.ResNet(cfg, device="cuda")
+    gpu_model.load_state_dict(start)
+    rng = np.random.default_rng(0)
+    size = RESNET["image"]
+    images = torch.from_numpy(rng.normal(0, 1, (2, size, size, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, (2,))).long()
+
+    t0 = time.perf_counter()
+    gpu_loss = F.cross_entropy(gpu_model(images.cuda()), labels.cuda())
+    gpu_loss.backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_loss = F.cross_entropy(cpu_model(images), labels)
+    cpu_loss.backward()
+    t2 = time.perf_counter()
+    loss_rel = rel(gpu_loss.item(), cpu_loss.item())
+    cpu_params = dict(cpu_model.named_parameters())
+    grads = {n: rel(p.grad.float().norm().item(), cpu_params[n].grad.norm().item())
+             for n, p in gpu_model.named_parameters()}
+    whole = [torch.cat([p.grad.float().flatten().cpu() for p in m.parameters()])
+             for m in (gpu_model, cpu_model)]
+    whole_rel = ((whole[0] - whole[1]).norm() / whole[1].norm()).item()
+    cpu_buffers = dict(cpu_model.named_buffers())
+    stats = {}
+    for n, b in gpu_model.named_buffers():  # the batch's mean and variance
+        got, want = ((x.float().cpu() - 0.9 * start[n]) / 0.1 for x in (b, cpu_buffers[n]))
+        stats[n] = ((got - want).norm() / want.norm()).item()
+    in_norm = {n: n.rsplit(".", 1)[0] in norms for n in grads}
+    worst_conv = max((n for n in grads if not in_norm[n]), key=grads.get)
+    worst_norm = max((n for n in grads if in_norm[n]), key=grads.get)
+    worst_stat = max(stats, key=stats.get)
+    log(f"[p] {RESNET['model']} ({sum(p.numel() for p in cpu_params.values()):,} parameters) "
+        f"bs 2 at {size}x{size}, one training step: loss card {gpu_loss.item():.6f} cpu "
+        f"{cpu_loss.item():.6f}, rel {loss_rel:.3e} (tol {PARITY_TOL['loss']}; card "
+        f"{t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
+    log(f"[p] worst grad-norm rel of a convolution or the head {grads[worst_conv]:.3e} at "
+        f"{worst_conv} (tol {PARITY_TOL['grad_norm']}), of a BatchNorm "
+        f"{grads[worst_norm]:.3e} at {worst_norm} (tol {RESNET_TOL['norm_grad']}), over "
+        f"{len(grads)} parameters; the whole gradient rel L2 {whole_rel:.3e} (tol "
+        f"{RESNET_TOL['grad']}); worst batch-statistics rel L2 {stats[worst_stat]:.3e} at "
+        f"{worst_stat} over {len(stats)} buffers (tol {RESNET_TOL['stats']})")
+    if not (loss_rel <= PARITY_TOL["loss"] and grads[worst_conv] <= PARITY_TOL["grad_norm"]
+            and grads[worst_norm] <= RESNET_TOL["norm_grad"] and whole_rel <= RESNET_TOL["grad"]
+            and stats[worst_stat] <= RESNET_TOL["stats"]):
+        raise AssertionError("resnet50 card against CPU: outside the tolerances above")
+    del gpu_model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_p(peak) -> None:
+    """ResNet-50 card against CPU; resnet_train at resnet50, 224x224,
+    global batch 256 on this card (a 2-step warm-up run, then a run whose
+    window holds its steps after the first): step time, images/s, MFU
+    (3 x the forward FLOPs of the convolutions and the head a image) and
+    peak memory, the host's draw of one batch, the same step on a batch
+    resident on the card and, as a yardstick only, that step with
+    torch.compile of the port's model; mnist_train with the manifest's
+    arguments reaches its target."""
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch.models import resnet
+    from tf_operator_tpu_torch.train import data, mnist_train, resnet_train
+
+    resnet_parity()
+    argv = ["--model", RESNET["model"], "--image-size", str(RESNET["image"]), "--batch",
+            str(RESNET["batch"]), "--log-every", "100"]
+    cfg = resnet.CONFIGS[RESNET["model"]]
+    flops = 3 * cfg.forward_flops(RESNET["image"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        resnet_train.run(resnet_train.parse_args([*argv, "--steps", str(RESNET["warmup"])]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = resnet_train.run(resnet_train.parse_args([*argv, "--steps", str(RESNET["steps"])]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = out["window_seconds"] / out["window_steps"]
+    ips = out["images_per_step"] / step_s
+    mfu = ips * flops / (peak.bf16_tflops * 1e12)
+    log(f"[p] resnet_train {RESNET['model']} {RESNET['image']}x{RESNET['image']} global batch "
+        f"{RESNET['batch']}, one card: losses {out['losses']}; window of {out['window_steps']} "
+        f"steps in {out['window_seconds']:.4f} s (after {RESNET['warmup']} warm-up steps and "
+        f"the run's first): step {step_s:.4f} s, images/s {ips:.1f}, MFU {mfu:.4f} "
+        f"({flops:.4e} FLOP an image, peak {peak.bf16_tflops} TFLOP/s); peak device memory "
+        f"{peak_gb:.3f} GB")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss {out['losses']}")
+
+    # Where the window's time goes: the host's draw of one batch, and the
+    # step alone on a batch already on the card.
+    draws = resnet_train.batches(0, RESNET["batch"], RESNET["image"], cfg.num_classes)
+    t0 = time.perf_counter()
+    host = next(draws)
+    draw_s = time.perf_counter() - t0
+    images, labels = data.to_device(*host, torch.device("cuda"))
+    model = out["model"]
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, nesterov=True)
+    step_fn = resnet_train.make_train_step(model, optimizer)
+    resident_ms = time_ms(lambda: step_fn(images, labels), iters=5, warmup=2, repeats=1)
+    resident_ips = RESNET["batch"] / (resident_ms / 1e3)
+    log(f"[p] the host draws one batch in {draw_s:.4f} s (numpy, the JAX script's draw); the "
+        f"step on a resident batch {resident_ms:.2f} ms (CUDA events over 5 steps): images/s "
+        f"{resident_ips:.1f}, MFU {resident_ips * flops / (peak.bf16_tflops * 1e12):.4f}")
+    t0 = time.perf_counter()
+    compiled_fn = resnet_train.make_train_step(torch.compile(model), optimizer)
+    compiled_ms = time_ms(lambda: compiled_fn(images, labels), iters=5, warmup=3, repeats=1)
+    log(f"[p] yardstick, not used by the port: the same step with torch.compile of the "
+        f"model {compiled_ms:.2f} ms ({resident_ms / compiled_ms:.3f}x the port's; compiled "
+        f"and warmed in {time.perf_counter() - t0:.1f} s)")
+    del out, model, optimizer, step_fn, compiled_fn, images, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        code = mnist_train.main(MNIST_ARGS)
+    lines = text.getvalue().strip().splitlines()
+    log(f"[p] mnist_train {' '.join(MNIST_ARGS)}: exit {code} in "
+        f"{time.perf_counter() - t0:.1f} s; " + "; ".join(lines[-3:]))
+    if code != 0:
+        raise AssertionError("mnist_train missed its target accuracy")
+
+
 STEP_LINE = re.compile(r"^\[llama\] step (\d+) loss (\S+) tokens/sec ([\d,]+)", re.M)
 
 
@@ -1444,6 +1619,7 @@ def main() -> int:
     phase_m(build, peak, moe_losses, bert_run)
     phase_n()
     phase_o(build)
+    phase_p(peak)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -44,7 +44,15 @@ seed; then, in the N processes, the rows:
   at seq 2048, global batch 8N, over pp=4 (6 layers a stage, M=4 and
   M=8 microbatches), pp=2 x fsdp=2 and pp=2 x tp=2 (M=2) against the
   one-card llama run, each stage's launches and permutes a step against
-  :func:`pipe_expect`.
+  :func:`pipe_expect`;
+- resnet50 data parallel over the N cards through ``resnet_train`` at
+  224x224, global batch 64N (256 at 4 cards), 4 steps, the BatchNorm
+  statistics the global batch's: each loss against a one-card run of the
+  same global batch (the N ranks' draws, rank-major) at ``LOSS_TOL``,
+  rank 0's running BatchNorm statistics after the 4 steps against that
+  run's at ``RESNET_STATS_TOL`` (per-rank statistics would differ by the
+  sampling of 64 images against 256), images/s a card and the fullest
+  card's peak memory.
 
 Every row prints tokens/s per card, the step time, the peak memory of the
 fullest card and the kernels' launches a step per card. The last line is
@@ -83,6 +91,12 @@ STEPS = 4
 WORKER_TIMEOUT = 900.0  # the workers' whole run
 COLLECTIVE_TIMEOUT = 300  # a collective that waits longer aborts its process
 NCCL_A2A = ("SendRecv", "AllToAll")
+# Rank 0's running BatchNorm statistics against the one-card run's, worst
+# relative L2 over the buffers. resnet50 on 4 H100s read 2.2e-3 with the
+# global batch's statistics and 1.47 with each rank's own (both at the
+# stem's running mean), where the losses stayed within 1.4e-4: the limit
+# sits 9x above the first reading and 70x below the second.
+RESNET_STATS_TOL = 2e-2
 
 
 @dataclasses.dataclass
@@ -100,12 +114,16 @@ class Plan:
     bert_rows: int = 16
     long_seq: int = 8192  # the ring rows' sequence
     long_rows: int = 4  # the ring rows' global batch
+    resnet: str = "resnet50"
+    image: int = 224
+    resnet_rows: int = 64  # a card's images
 
     @classmethod
     def for_device(cls, device: str, procs: int) -> "Plan":
         if device == "cuda":
             return cls("cuda", procs)
-        return cls("cpu", procs, "llama-tiny", "moe-tiny", "bert-tiny", 32, 32, 2, 2, 64, 4)
+        return cls("cpu", procs, "llama-tiny", "moe-tiny", "bert-tiny", 32, 32, 2, 2, 64, 4,
+                   "resnet-tiny", 32, 2)
 
 
 def log(msg: str) -> None:
@@ -117,12 +135,14 @@ def fp32_on_cpu(plan: Plan) -> None:
     the last bits; the card runs bf16."""
     if plan.device != "cpu":
         return
-    from tf_operator_tpu_torch.models import bert, llama
+    from tf_operator_tpu_torch.models import bert, llama, resnet
 
     for table, name in ((llama.CONFIGS, plan.llama), (llama.CONFIGS, plan.moe),
                         (bert.CONFIGS, plan.bert)):
         table[name] = dataclasses.replace(table[name], dtype=torch.float32,
                                           param_dtype=torch.float32)
+    resnet.CONFIGS[plan.resnet] = dataclasses.replace(resnet.CONFIGS[plan.resnet],
+                                                      dtype=torch.float32)
     # Layers that 4 pipeline stages divide.
     llama.CONFIGS[plan.llama] = dataclasses.replace(llama.CONFIGS[plan.llama], n_layers=4)
 
@@ -242,6 +262,42 @@ def train_bert(plan: Plan, group=None, rank: int = 0, world: int = 1) -> dict:
     return out
 
 
+def resnet_batches(plan: Plan):
+    """The global batch of each step of the ResNet row: the N ranks' own
+    draws (``resnet_train.batches``), rank-major, as one process's."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.models import resnet
+    from tf_operator_tpu_torch.train import resnet_train
+
+    classes = resnet.CONFIGS[plan.resnet].num_classes
+    parts = [resnet_train.batches(r, plan.resnet_rows, plan.image, classes)
+             for r in range(plan.procs)]
+    while True:
+        yield tuple(np.concatenate(a) for a in zip(*(next(p) for p in parts)))
+
+
+def train_resnet(plan: Plan, distributed: bool = False) -> dict:
+    """resnet_train on the row's global batch: over the process group, or
+    in one process on :func:`resnet_batches`."""
+    from tf_operator_tpu_torch.models import resnet
+    from tf_operator_tpu_torch.train import resnet_train
+
+    reset(plan)
+    args = resnet_train.parse_args([
+        "--model", plan.resnet, "--batch", str(plan.resnet_rows * plan.procs), "--image-size",
+        str(plan.image), "--steps", str(STEPS), "--log-every", "100", "--device", plan.device])
+    out = resnet_train.run(args, data=None if distributed else resnet_batches(plan))
+    step_s = out["window_seconds"] / max(out["window_steps"], 1)
+    row = {"model": plan.resnet, "losses": out["losses"], "step_s": step_s,
+           "tokens_per_s": out["images_per_step"] / step_s, "unit": "images",
+           "flops_per_token": 3 * resnet.CONFIGS[plan.resnet].forward_flops(plan.image),
+           "stats": {k: v.float().cpu() for k, v in out["model"].named_buffers()},
+           **counters(plan, STEPS)}
+    del out
+    return row
+
+
 # ------------------------------------------------------------- the parent
 def references(plan: Plan, tokens: str) -> dict:
     """The one-card runs, in this process on card 0 (no process group)."""
@@ -249,15 +305,16 @@ def references(plan: Plan, tokens: str) -> dict:
     refs["moe_routes"] = {}
     refs["moe"] = train_llama(plan, llama_args(plan, plan.moe, tokens), refs["moe_routes"])
     refs["bert"] = train_bert(plan)
-    names = ["llama", "moe", "bert"]
+    refs["resnet"] = train_resnet(plan)
+    names = ["llama", "moe", "bert", "resnet"]
     if plan.procs == 4:
         refs["llama_long"] = train_llama(plan, llama_args(plan, plan.llama, tokens, long=True))
         names.append("llama_long")
     for name in names:
         r = refs[name]
         log(f"[n] one card: {r['model']} losses {r['losses']}, step {r['step_s']:.4f} s, "
-            f"tokens/s {r['tokens_per_s']:.1f}, peak {r['peak_bytes'] / 1e9:.3f} GB, "
-            f"launches a step {r['launches']}")
+            f"{r.get('unit', 'tokens')}/s {r['tokens_per_s']:.1f}, peak "
+            f"{r['peak_bytes'] / 1e9:.3f} GB, launches a step {r['launches']}")
     return refs
 
 
@@ -322,6 +379,13 @@ def flips(got: dict, want: dict) -> list:
     return [(got[i] != want[i]).float().mean().item() for i in sorted(want)]
 
 
+def stats_rel(got: dict, want: dict) -> tuple:
+    """(buffer, relative L2) of the buffer that differs most."""
+    rels = {k: ((got[k] - w).norm() / w.norm()).item() for k, w in want.items()}
+    worst = max(rels, key=rels.get)
+    return worst, rels[worst]
+
+
 def check_row(plan: Plan, row: dict, refs: dict) -> list:
     """The row's failures (empty when it passed); prints its line."""
     fails = []
@@ -351,6 +415,12 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
             fails.append(f"{what}: losses {losses} against one card's {ref['losses']}")
         log(f"[n] {what}: losses {losses} against one card {ref['losses']}: worst rel "
             f"{worst:.3e} (tol {tol})")
+    if "stats_rel" in row:
+        name, value = row["stats_rel"]
+        log(f"[n] {what}: rank 0's running statistics after {len(losses)} steps against one "
+            f"card's: worst rel L2 {value:.3e} at {name} (tol {RESNET_STATS_TOL})")
+        if value > RESNET_STATS_TOL:
+            fails.append(f"{what}: running statistics rel L2 {value} at {name}")
     if "routes" in row:
         log(f"[n] {what}: share of first-forward routes whose expert differs from one card's, "
             f"per layer {row['routes']}")
@@ -363,7 +433,8 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
                          f"{row['first_loss_target']}")
     launches = ranks[0]["launches"]
     a2a = [r["all_to_all"] for r in ranks]
-    log(f"[n] {what}: step {row['step_s']:.4f} s, tokens/s {row['tokens_per_s']:.1f} "
+    unit = row.get("unit", "tokens")
+    log(f"[n] {what}: step {row['step_s']:.4f} s, {unit}/s {row['tokens_per_s']:.1f} "
         f"({per_card:.1f} a card), MFU {mfu:.4f}; peak memory of the fullest card "
         f"{peak / 1e9:.3f} GB; launches a step a card {launches}; all-to-alls a step a "
         f"card {a2a}")
@@ -449,16 +520,20 @@ def main(argv=None) -> int:
 
         tokens = cs.seeded_tokens(tmp, vocab=llama.CONFIGS[plan.llama].vocab_size)
         refs = references(plan, tokens)
+        one_card_stats = refs["resnet"].pop("stats")
         moe_routes = refs.pop("moe_routes")
         gc.collect()
         if plan.device == "cuda":
             torch.cuda.empty_cache()
         rows = spawn(plan, tmp, tokens)
         routes = torch.load(os.path.join(tmp, "routes.pt"))
+        dp_stats = torch.load(os.path.join(tmp, "resnet_stats.pt"))
     fails = []
     for row in rows:
         if row["name"] in routes:
             row["routes"] = flips(routes[row["name"]], moe_routes)
+        if row.get("ref") == "resnet":
+            row["stats_rel"] = stats_rel(dp_stats, one_card_stats)
         fails += check_row(plan, row, refs)
     for f in fails:
         log(f"[n] FAIL {f}")
@@ -471,7 +546,7 @@ def main(argv=None) -> int:
     log(json.dumps({"ok": not fails, "cards": procs, "rows": [
         {k: row.get(k) for k in ("name", "mesh", "losses", "step_s", "per_card_tokens_per_s",
                                  "mfu", "peak_bytes", "worst_rel", "routes", "a2a_ms",
-                                 "a2a_alone_ms", "restore_equal", "ppermute")}
+                                 "a2a_alone_ms", "restore_equal", "ppermute", "stats_rel")}
         for row in rows]}))
     return 0 if not fails else 1
 
@@ -564,10 +639,16 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
         sequence_and_pipeline_rows(plan, tokens, tmp, layout, rows, rank)
     else:
         log(f"[n] the sp and pp rows need 4 cards; {n} here")
+
+    # resnet50 data parallel over the world, global-batch BatchNorm.
+    row = train_resnet(plan, distributed=True)
+    stats = row.pop("stats")
+    gather(row, f"{plan.resnet} dp={n}", mesh={"dp": n}, ref="resnet")
     if rank == 0:
         with open(os.path.join(tmp, "rows.json"), "w") as f:
             json.dump(rows, f)
         torch.save(routes, os.path.join(tmp, "routes.pt"))
+        torch.save(stats, os.path.join(tmp, "resnet_stats.pt"))
     dist.barrier()
     dist.destroy_process_group()
     return 0

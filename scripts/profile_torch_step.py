@@ -3,13 +3,16 @@
     python3 scripts/profile_torch_step.py [--model llama-400m] [--batch 8]
         [--seq 2048] [--steps 2] [--remat-policy dots]
     python3 scripts/profile_torch_step.py --model bert-base --batch 16 --seq 512
+    python3 scripts/profile_torch_step.py --model resnet50 --batch 256
 
 Builds the port's train step through the llama_train entry point's setup
-(a BERT model: the JAX bench's BERT step, ``bert_setup``), runs one
+(a BERT model: the JAX bench's BERT step, ``bert_setup``; a ResNet:
+``resnet_train``'s step on one 224x224 batch resident on the card,
+``resnet_setup``), runs one
 warm-up step, then traces ``--steps`` steps with torch.profiler
 (CPU and CUDA activities). Prints the step wall time (host clock around
 steps that end in a device synchronise), the device time of every kernel
-summed by group (the port's four hand-written kernels, matrix products,
+summed by group (the port's four hand-written kernels, convolutions, matrix products,
 the optimizer's multi-tensor kernels, torch's elementwise and reduction
 kernels, everything else), the device's busy and idle share of the traced
 wall time, the peak device memory of the traced steps, and the 25 kernels
@@ -39,6 +42,8 @@ def group_of(name: str) -> str:
         if k in name:
             return k
     low = name.lower()
+    if any(t in low for t in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
+        return "convolution"
     if any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "matmul"
     if "multi_tensor" in low or "foreach" in low:
@@ -77,6 +82,29 @@ def bert_setup(args):
     return init_train_state(model, optimizer), make_train_step(optimizer), batches()
 
 
+def resnet_setup(args):
+    """(model, step, batches) of ``resnet_train``'s step (SGD with Nesterov
+    momentum 0.9 at lr 0.1) on one seeded batch of ``--batch`` 224x224
+    images drawn as the entry point draws them, kept on the card."""
+    from tf_operator_tpu_torch.models import resnet
+    from tf_operator_tpu_torch.train import data, resnet_train
+
+    torch.backends.cudnn.benchmark = True
+    cfg = resnet.CONFIGS[args.model]
+    model = resnet.ResNet(cfg, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, nesterov=True)
+    step = resnet_train.make_train_step(model, optimizer)
+    batch = data.to_device(*next(resnet_train.batches(0, args.batch, 224, cfg.num_classes)),
+                           torch.device("cuda"))
+
+    def batches():
+        while True:
+            yield batch
+
+    return model, lambda model, b: (model, step(*b)), batches()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="llama-400m")
@@ -100,6 +128,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     if args.model.startswith("bert"):
         state, step_fn, data = bert_setup(args)
+    elif args.model.startswith("resnet"):
+        state, step_fn, data = resnet_setup(args)
     else:
         targs = llama_train.parse_args(["--model", args.model, "--batch", str(args.batch),
                                         "--seq", str(args.seq), "--steps", str(args.steps),

@@ -29,11 +29,15 @@ MODULES = [
     "tf_operator_tpu_torch.ops.remat",
     "tf_operator_tpu_torch.models.llama",
     "tf_operator_tpu_torch.models.bert",
+    "tf_operator_tpu_torch.models.resnet",
+    "tf_operator_tpu_torch.models.mnist",
     "tf_operator_tpu_torch.models.convert",
     "tf_operator_tpu_torch.train.data",
     "tf_operator_tpu_torch.train.train_step",
     "tf_operator_tpu_torch.train.llama_train",
     "tf_operator_tpu_torch.train.bert_train",
+    "tf_operator_tpu_torch.train.resnet_train",
+    "tf_operator_tpu_torch.train.mnist_train",
     "tf_operator_tpu_torch.train.checkpoint",
     "tf_operator_tpu_torch.train.restore",
     "tf_operator_tpu_torch.native.build",

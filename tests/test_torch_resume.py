@@ -15,7 +15,11 @@
   ``test_torch_sharding.py``): the sharded state takes the DCP branch,
   saves at steps 2 and 4 while training goes on (the save must stage
   before the next in-place update), and a rerun after the newer saves are
-  lost resumes from step 2 with the uninterrupted run's losses.
+  lost resumes from step 2 with the uninterrupted run's losses;
+- a DCP save starts only after the one before it has ended (a one-rank
+  gloo group in this process, each save's end held back): two saves in
+  flight run their collectives on two threads over one group, in orders
+  that may differ between the ranks, which hung the fsdp=2 run under load.
 
 ``--warmup 6`` keeps the lr schedule the same for ``--steps 3`` and
 ``--steps 6`` (``decay_steps`` is max(steps, warmup + 1)), and a resumed run
@@ -30,7 +34,9 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -213,3 +219,52 @@ def test_fsdp2_saves_and_restores_through_dcp(tokens, tmp_path):
         assert r["second"] == r["whole"][2:]
         assert r["whole"][-1] < r["whole"][0] - 0.05
     assert sorted(os.listdir(tmp_path / "c" / "dcp")) == ["2", "5"]
+
+
+def test_a_dcp_save_waits_for_the_one_before(tokens, tmp_path, monkeypatch):
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    from tf_operator_tpu_torch.train import checkpoint
+
+    real, futures, in_flight = dcp.async_save, [], []
+
+    def held(*args, **kwargs):
+        """The real save, its future completed 1.5 s after it ends: longer
+        than a step, so that the next save comes while it is pending."""
+        in_flight.append(sum(not f.done() for f in futures))
+        inner, outer = real(*args, **kwargs), Future()
+
+        def finish():
+            time.sleep(1.5)
+            exc = inner.exception()
+            outer.set_exception(exc) if exc else outer.set_result(inner.result())
+        threading.Thread(target=finish, daemon=True).start()
+        futures.append(outer)
+        return outer
+
+    monkeypatch.setattr(dcp, "async_save", held)
+    # A one-rank FSDP2 state taken down the DCP branch as a sharded one.
+    monkeypatch.setattr(checkpoint, "is_sharded", lambda state: True)
+    monkeypatch.setenv("JAX_MESH_SPEC", '{"fsdp": 1}')
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    ckpt = str(tmp_path / "c")
+    try:
+        first = llama_train.run(llama_train.parse_args(
+            [*ARGS, "--data", tokens, "--steps", "2", "--checkpoint-every", "1",
+             "--checkpoint-dir", ckpt]))
+        second = llama_train.run(llama_train.parse_args(
+            [*ARGS, "--data", tokens, "--steps", "3", "--checkpoint-dir", ckpt]))
+    finally:
+        dist.destroy_process_group()
+    assert in_flight == [0, 0, 0]  # steps 1 and 2, then 3
+    assert first["ckpt"].last_durable_step() == 2
+    out = second["restore"]
+    assert (out.path, out.cause, out.step) == ("storage", "ok", 2)
+    assert sorted(os.listdir(os.path.join(ckpt, "dcp"))) == ["1", "2", "3"]
+    # Each closed manager destroyed its gloo group.
+    assert first["ckpt"]._cpu_group is None and second["ckpt"]._cpu_group is None

@@ -1,5 +1,5 @@
-"""Weights carried across: the JAX Llama's and BERT's params -> the port's
-state_dicts.
+"""Weights carried across: the JAX Llama's, BERT's, ResNet's and MNIST's
+variables -> the port's state_dicts.
 
 Takes the JAX package's parameter tree as nested dicts of numpy arrays (as
 ``jax.tree.map(np.asarray, params)`` gives them, with or without the
@@ -20,11 +20,20 @@ top-level ``"params"`` key) and returns the ``state_dict`` of
   become ``[h*hd, d]`` and their biases ``[h, hd]`` ``[h*hd]``; ``Dense``
   kernels are transposed; the embeddings, the fp32 LayerNorm ``scale``/
   ``bias`` and ``mlm_bias`` stay as they are.
+- ResNet (:func:`resnet_flax_to_state_dict`) and MNIST
+  (:func:`mnist_flax_to_state_dict`): convolution kernels go from HWIO to
+  OIHW, dense kernels are transposed; a ResNet's ``batch_stats``
+  ``mean``/``var`` become the BatchNorm's ``running_mean``/``running_var``
+  and its ``scale`` the ``weight``; the blocks ``BottleneckBlock_{k}``/
+  ``BasicBlock_{k}`` become ``blocks.{k}``, ``Conv_{i}``/``BatchNorm_{i}``
+  ``conv{i}``/``norm{i}``, ``Dense_0`` ``head``.
 - bf16 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
   rejects; they travel as a ``uint16`` view, reinterpreted as bfloat16.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -112,4 +121,60 @@ def bert_flax_to_state_dict(params: dict) -> dict:
             dense(pre + name, layer[name])
         for name in ("ln_attn", "ln_ffn"):
             norm(pre + name, layer[name])
+    return {k: _to_tensor(v) for k, v in out.items()}
+
+
+def _conv(out: dict, name: str, leaf: dict) -> None:
+    out[f"{name}.weight"] = np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if "bias" in leaf:
+        out[f"{name}.bias"] = leaf["bias"]
+
+
+def _dense(out: dict, name: str, leaf: dict) -> None:
+    out[f"{name}.weight"] = np.asarray(leaf["kernel"]).T
+    out[f"{name}.bias"] = leaf["bias"]
+
+
+_RESNET_LAYER = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
+_RESNET_PREFIX = {"Conv": "conv", "BatchNorm": "norm"}
+
+
+def resnet_flax_to_state_dict(variables: dict) -> dict:
+    """The JAX ResNet's ``{"params", "batch_stats"}`` (numpy leaves, as
+    ``init_variables`` gives them) -> the state_dict of
+    ``models.resnet.ResNet``, running statistics included."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out = {}
+
+    def norm(name, p, s):
+        out.update({f"{name}.weight": p["scale"], f"{name}.bias": p["bias"],
+                    f"{name}.running_mean": s["mean"], f"{name}.running_var": s["var"]})
+
+    _conv(out, "conv_init", params["conv_init"])
+    norm("bn_init", params["bn_init"], stats["bn_init"])
+    _dense(out, "head", params["Dense_0"])
+    blocks = {int(name.rsplit("_", 1)[1]): name for name in params
+              if name.startswith(("BottleneckBlock_", "BasicBlock_"))}
+    for k, name in blocks.items():
+        for sub, leaf in params[name].items():
+            m = _RESNET_LAYER.match(sub)
+            port = f"blocks.{k}." + (_RESNET_PREFIX[m[1]] + m[2] if m else sub)
+            if "kernel" in leaf:
+                _conv(out, port, leaf)
+            else:
+                norm(port, leaf, stats[name][sub])
+    return {k: _to_tensor(v) for k, v in out.items()}
+
+
+def mnist_flax_to_state_dict(params: dict) -> dict:
+    """The JAX ``MnistCNN``'s params (numpy leaves, with or without the
+    top-level ``"params"`` key) -> the state_dict of
+    ``models.mnist.MnistCNN``. The first dense kernel's rows are already in
+    the NHWC order the port flattens in."""
+    p = params.get("params", params)
+    out = {}
+    _conv(out, "conv0", p["Conv_0"])
+    _conv(out, "conv1", p["Conv_1"])
+    _dense(out, "dense0", p["Dense_0"])
+    _dense(out, "dense1", p["Dense_1"])
     return {k: _to_tensor(v) for k, v in out.items()}

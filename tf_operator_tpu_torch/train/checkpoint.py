@@ -34,7 +34,12 @@ orbax, so its layout differs:
   ``torch.distributed.checkpoint.async_save`` into ``<dir>/dcp/<step>/``,
   is durable once the save's future completes and DCP's ``.metadata``
   exists, and is restored in place with ``torch.distributed.checkpoint.
-  load``. ``host_snapshot()`` stays None and restores go to storage.
+  load``. ``host_snapshot()`` stays None and restores go to storage. At
+  most one DCP save is in flight: each ``async_save`` runs its planning,
+  writes and metadata gather on a thread of its own over the manager's
+  gloo group, and two such threads would let the ranks run their
+  collectives in different orders (a hang). A save waits for the one
+  before it, as orbax's manager does.
 
 **Delta persists** (``delta_persist=True``): between durable steps most
 shards may be byte-identical, so the persist writes only payloads whose
@@ -56,6 +61,7 @@ persist*``, best-effort there) are not ported; ``last_persist_info`` and
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import logging
@@ -236,6 +242,7 @@ class CheckpointManager:
         self._persist_errors = 0
         self._closed = False
         self._cpu_group = None
+        self._dcp_future = None  # the newest DCP save's (see the module doc)
         # Test seam: called in the persist worker between the snapshot and
         # the storage write; a test blocks or raises here to hold a step
         # non-durable deterministically.
@@ -530,6 +537,12 @@ class CheckpointManager:
             self._cpu_group = dist.new_group(backend="gloo")
         return self._cpu_group
 
+    def _wait_dcp(self) -> None:
+        """Wait for the newest DCP save's thread to end (its failure is
+        the persist worker's to report)."""
+        if self._dcp_future is not None:
+            concurrent.futures.wait([self._dcp_future])
+
     def _finalize_dcp(self, step: int, future) -> None:
         future.result()
         if not os.path.exists(os.path.join(self._dcp_path(step), ".metadata")):
@@ -634,10 +647,13 @@ class CheckpointManager:
             # async_save stages a CPU copy of every tensor before it
             # returns, so the next step's in-place update cannot reach the
             # bytes being written; the worker turns the future's end into
-            # the durability edge.
+            # the durability edge. The previous save's collectives end
+            # before this one's start (module doc).
+            self._wait_dcp()
             kind, payload = "finalize", dcp.async_save(
                 _dcp_state_dict(state), checkpoint_id=self._dcp_path(step),
                 process_group=self._dcp_group())
+            self._dcp_future = payload
         else:
             kind = "delta"
             payload = self._snapshot = take_snapshot(state, step, self._model_meta)
@@ -699,6 +715,7 @@ class CheckpointManager:
         import torch.distributed.checkpoint as dcp
 
         sd = _dcp_state_dict(state)
+        self._wait_dcp()
         with torch.no_grad():
             dcp.load(sd, checkpoint_id=self._dcp_path(dcp_step),
                      process_group=self._dcp_group() if dist.is_initialized() else None)
@@ -725,6 +742,10 @@ class CheckpointManager:
             self._persist_queue.put(("stop",))
             self._persist_thread.join(timeout=60.0)
             self._persist_thread = None
+        self._wait_dcp()
+        if self._cpu_group is not None and dist.is_initialized():
+            dist.destroy_process_group(self._cpu_group)
+        self._cpu_group = None
 
     def __enter__(self) -> "CheckpointManager":
         return self

@@ -243,3 +243,9 @@ def shard_batch(batch, device, stream: Optional["torch.cuda.Stream"] = None):
         copied = torch.cuda.Event()
         copied.record(stream)
     return out, copied
+
+
+def to_device(images: np.ndarray, labels: np.ndarray, device: torch.device):
+    """One host batch of images and labels on ``device`` (through
+    :func:`shard_batch`), the labels as int64."""
+    return shard_batch(images, device)[0], shard_batch(labels, device)[0].long()
