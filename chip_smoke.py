@@ -129,8 +129,11 @@ Phases (any failure raises and the script exits non-zero):
       data parallel, a DCP save and restore of the ep=N MoE state, each
       against a one-card run; at 4 cards also llama-400m at seq 8192
       over sp=4, sp=2 x fsdp=2 and sp=2 x tp=2, and at seq 2048 over
-      pp=4 (M=4 and M=8), pp=2 x fsdp=2 and pp=2 x tp=2; its last 200
-      lines printed); with one card it prints that it did not run and why;
+      pp=4 (M=4 and M=8), pp=2 x fsdp=2 and pp=2 x tp=2; the multislice
+      layout, llama-400m over slice=2 x fsdp=N/2 and dp=2 x fsdp=N/2, and
+      over 2 nodes of N/2 cards through the per-node launcher under a
+      2-node JAXJob's env, its losses the slice row's; its last 200 lines
+      printed); with one card it prints that it did not run and why;
   (o) ring attention's block path on one card: 4 virtual ring ranks run
       in turn at llama-400m's [2, 8192, 8, 128] bf16 (each rank's
       [2, 2048] piece), the full, diagonal and skipped blocks through the
@@ -149,7 +152,13 @@ Phases (any failure raises and the script exits non-zero):
       convolution and head FLOPs) and peak memory; the host's draw of one
       batch, the step on a resident batch, and as a yardstick that step
       under torch.compile; mnist_train with the manifest's arguments
-      (--steps=600 --batch=256 --target-accuracy=0.95) must exit 0.
+      (--steps=600 --batch=256 --target-accuracy=0.95) must exit 0;
+  (q) the per-node launcher on one card: ``python -m tf_operator_tpu_torch.
+      runtime.launch --nproc-per-node 1 -- python -m tf_operator_tpu_torch.
+      train.llama_train`` with phase e's arguments under the env the
+      operator gives the pod of a 1-node JAXJob of one card (:func:`node_env`);
+      the run's ``[llama] done`` summary: its 4 losses phase e's (LOSS_TOL)
+      at phase e's launches a step of the four kernels.
 
 Phases e-m each reset the launch counters just before their runs and read
 them just after. The last lines are the nvidia-smi line, one JSON line of
@@ -1175,10 +1184,7 @@ def one_rank_group():
     """A one-rank NCCL group in this process, on card 0."""
     import torch.distributed as dist
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
                             rank=0, device_id=torch.device("cuda", 0))
 
 
@@ -1579,6 +1585,79 @@ def phase_j(steps: int = 32, timeout: float = 600.0) -> None:
             raise AssertionError(f"the trace misses a hand-written kernel: {seen}")
 
 
+def node_env(nodes: int, node: int, gpus: int, port: int) -> dict:
+    """The env the operator gives pod ``node`` of a JAXJob that
+    ``tf_operator_tpu_torch.api.gpu.gpu_job`` renders for ``nodes`` nodes
+    of ``gpus`` cards (``numSlices`` = nodes, its default mesh), written
+    out here with every service host on this machine's loopback and the
+    coordinator on ``port``: the JAXJob contract of one process a node,
+    which the per-node launcher turns into one process a card."""
+    mesh = {"slice": nodes, "fsdp": gpus} if nodes > 1 else {"fsdp": gpus}
+    env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": str(nodes),
+           "JAX_PROCESS_ID": str(node), "TPU_WORKER_ID": "0",
+           "TPU_WORKER_HOSTNAMES": "127.0.0.1", "JAX_NUM_SLICES": str(nodes),
+           "JAX_SLICE_INDEX": str(node),
+           "JAX_MESH_SPEC": json.dumps(mesh, separators=(",", ":"))}
+    if nodes > 1:
+        env.update(MEGASCALE_COORDINATOR_ADDRESS="127.0.0.1", MEGASCALE_NUM_SLICES=str(nodes),
+                   MEGASCALE_SLICE_ID=str(node))
+    return env
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_argv(gpus: int, command: list) -> list:
+    """``command`` under the per-node launcher, ``gpus`` processes."""
+    return [sys.executable, "-m", "tf_operator_tpu_torch.runtime.launch", "--nproc-per-node",
+            str(gpus), "--", *command]
+
+
+DONE_LINE = re.compile(r"^\[llama\] done (\{.*\})$", re.M)
+
+
+def done_lines(text: str) -> dict:
+    """{process: the ``[llama] done`` summary} of every rank in ``text``."""
+    return {s["process"]: s for s in map(json.loads, DONE_LINE.findall(text))}
+
+
+def phase_q(main: dict, timeout: float = 600.0) -> None:
+    """The per-node launcher on one card: ``launch --nproc-per-node 1 --
+    llama_train`` under the env of a 1-node JAXJob of one card, phase e's
+    arguments; its losses phase e's (LOSS_TOL) at phase e's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {**os.environ, **node_env(1, 0, 1, free_port())}
+    t0 = time.perf_counter()
+    command = [sys.executable, "-m", "tf_operator_tpu_torch.train.llama_train", *MAIN_ARGS,
+               "--steps", "4"]
+    proc = subprocess.run(launch_argv(1, command), cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[gpu_init]", "[llama] process")):
+            log(f"[q] {line}")
+    log(f"[q] launcher exit {proc.returncode} in {seconds:.1f} s")
+    runs = done_lines(proc.stdout)
+    if proc.returncode != 0 or list(runs) != [0]:
+        raise AssertionError(f"the launched run failed (exit {proc.returncode}, summaries of "
+                             f"processes {list(runs)}):\n{proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    run = runs[0]
+    check_losses("q", "through the launcher against phase e", run["losses"], main["losses"])
+    per_step = {k: run["launches"].get(k, 0) / len(run["losses"]) for k in KERNEL_SYMBOLS}
+    want = {k: main["per_step"][k] for k in KERNEL_SYMBOLS}
+    step_s = run["window_seconds"] / max(run["window_steps"], 1)
+    log(f"[q] launches a step {per_step} (phase e: {want}); step {step_s:.4f} s, tokens/s "
+        f"{run['tokens_per_step'] / step_s:.1f} (phase e: {main['tokens_per_s']:.1f}); peak "
+        f"{run['peak_bytes'] / 2**30:.3f} GiB (phase e: {main['peak_gib']:.3f})")
+    if per_step != want:
+        raise AssertionError(f"launches a step {per_step} through the launcher, phase e {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1620,6 +1699,7 @@ def main() -> int:
     phase_n()
     phase_o(build)
     phase_p(peak)
+    phase_q(main)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -17,9 +17,18 @@ seed; then, in the N processes, the rows:
   MFU, and the peak
   memory of the fullest card against the reckoned bytes of
   ``llama_train.LLAMA2_7B_MIN_WORLD``'s comment (29.5e9 at 4 cards);
-- llama-400m over fsdp=N and over fsdp=N/2 x tp=2, global batch 8N, seq
-  2048, 4 steps from a seeded token file: each loss within
-  ``chip_smoke.LOSS_TOL`` of the one-card run's;
+- llama-400m over fsdp=N, over fsdp=N/2 x tp=2 and, the multislice
+  layout (HSDP: replicated over the first axis, sharded over fsdp), over
+  slice=2 x fsdp=N/2 and dp=2 x fsdp=N/2, global batch 8N, seq 2048, 4
+  steps from a seeded token file: each loss within ``chip_smoke.LOSS_TOL``
+  of the one-card run's; after the N workers, the same run over 2 nodes
+  of N/2 cards through the per-node launcher (:func:`launch_row`): two
+  launchers on their halves of the cards under a 2-node JAXJob's env
+  (``chip_smoke.node_env``), its losses the one-card run's and the
+  slice=2 x fsdp=N/2 row's (``LOSS_TOL``), every rank's launches and
+  peak memory from its ``[llama] done`` summary; in the three HSDP rows
+  every parameter shard bit-equal to its replica's across the replicate
+  dim after the last step (:func:`replica_mismatches`);
 - moe-125m over ep=N, over fsdp=N (the expert axis is fsdp: 8 experts
   divide it) and over ep=2 x fsdp=N/2, global batch 8N: the first loss at
   ``LOSS_TOL``, the later ones at ``PARITY_TOL["loss"]``, with the share
@@ -210,7 +219,33 @@ def train_llama(plan: Plan, argv: list, routes: dict = None) -> dict:
     return {"model": args.model, "losses": out["losses"], "mesh": out["mesh"],
             "step_s": step_s, "tokens_per_s": out["tokens_per_step"] / step_s,
             "flops_per_token": out["config"].flops_per_token(args.seq),
-            "data_rank": data_rank, **counters(plan, steps)}
+            "data_rank": data_rank, "replicas": replica_mismatches(s.state.model, s.mesh),
+            **counters(plan, steps)}
+
+
+def replica_mismatches(model, mesh):
+    """How many parameters differ, in any bit, between some rank's shard
+    and its peer's across the HSDP replicate dim (``slice`` or ``dp``),
+    summed over the world: 0 when every replica took the same steps; None
+    on a mesh without that dim. The losses cannot show this: a world whose
+    replicas never all-reduce their gradients keeps them within
+    ``LOSS_TOL`` over a row's steps."""
+    import torch.distributed as dist
+
+    names = mesh.mesh_dim_names if mesh is not None else ()
+    dims = [a for a in ("slice", "dp") if a in names and mesh[a].size() > 1]
+    if not dims:
+        return None
+    group, size = mesh[dims[0]].get_group(), mesh[dims[0]].size()
+    differ = 0
+    for p in model.parameters():
+        local = (p.to_local() if hasattr(p, "to_local") else p).detach().contiguous()
+        peers = [torch.empty_like(local) for _ in range(size)]
+        dist.all_gather(peers, local, group=group)
+        differ += any(not torch.equal(peers[0], x) for x in peers[1:])
+    total = torch.tensor([differ], device=local.device)
+    dist.all_reduce(total)
+    return int(total.item())
 
 
 def bert_batches(plan: Plan, vocab: int) -> list:
@@ -318,6 +353,21 @@ def references(plan: Plan, tokens: str) -> dict:
     return refs
 
 
+def wait_all(procs: list) -> None:
+    """Wait for ``procs`` for ``WORKER_TIMEOUT`` in all; kill what is left."""
+    deadline = time.monotonic() + WORKER_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def spawn(plan: Plan, tmp: str, tokens: str) -> list:
     """The N worker processes, their output in ``tmp``; returns their
     results (rank 0's list of rows)."""
@@ -335,17 +385,9 @@ def spawn(plan: Plan, tmp: str, tokens: str) -> list:
             [sys.executable, os.path.abspath(__file__), "--worker", "--device", plan.device,
              "--procs", str(plan.procs), "--tmp", tmp, "--tokens", tokens],
             cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + WORKER_TIMEOUT
     try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
+        wait_all(procs)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
         for f in logs:
             f.close()
     for rank, p in enumerate(procs):
@@ -357,6 +399,86 @@ def spawn(plan: Plan, tmp: str, tokens: str) -> list:
         if p.returncode != 0:
             raise AssertionError(f"rank {rank} exited {p.returncode}")
     return cs.read_json(os.path.join(tmp, "rows.json"))
+
+
+def launch_row(plan: Plan, tmp: str, tokens: str) -> dict:
+    """llama over 2 nodes of N/2 cards through the per-node launcher: two
+    launchers, each on its half of the cards (``CUDA_VISIBLE_DEVICES``),
+    under the env the operator gives the two pods of a 2-node ``gpu_job``
+    (``chip_smoke.node_env``: mesh {"slice": 2, "fsdp": N/2}); each child
+    runs the entry point's ``main`` (:func:`train_main`). The row of their
+    ``[llama] done`` summaries."""
+    half = plan.procs // 2
+    port = cs.free_port()
+    command = cs.launch_argv(half, [
+        sys.executable, os.path.abspath(__file__), "--device", plan.device, "--procs",
+        str(plan.procs), "--train", *llama_args(plan, plan.llama, tokens)])
+    procs, paths = [], []
+    for node in range(2):
+        env = {**os.environ, **cs.node_env(2, node, half, port)}
+        if plan.device == "cuda":
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(node * half + i) for i in range(half))
+        else:
+            env["OMP_NUM_THREADS"] = "1"
+        paths.append(os.path.join(tmp, f"launcher{node}.log"))
+        with open(paths[-1], "w") as out:
+            procs.append(subprocess.Popen(command, cwd=ROOT, env=env, stdout=out,
+                                          stderr=subprocess.STDOUT))
+    wait_all(procs)
+    runs, texts, replicas = {}, [], []
+    for node, path in enumerate(paths):
+        with open(path) as f:
+            texts.append(f.read())
+        runs.update(cs.done_lines(texts[-1]))
+        for line in texts[-1].splitlines():
+            if line.startswith(REPLICAS):
+                replicas.append(json.loads(line[len(REPLICAS):]))
+            if line.startswith(("[gpu_init]", "[llama] process", REPLICAS)):
+                log(f"[n] launcher {node}| {line}")
+    codes = [p.returncode for p in procs]
+    if (codes != [0, 0] or sorted(runs) != list(range(plan.procs))
+            or sorted(r["process"] for r in replicas) != list(range(plan.procs))):
+        for node, text in enumerate(texts):
+            for line in text.splitlines()[-60:]:
+                log(f"[n] launcher {node}| {line}")
+        raise AssertionError(f"the launchers exited {codes} with the summaries of processes "
+                             f"{sorted(runs)} and the replicas' checks of {replicas}")
+    first = runs[0]
+    steps = len(first["losses"])
+    step_s = first["window_seconds"] / max(first["window_steps"], 1)
+    from tf_operator_tpu_torch.models import llama
+
+    return {"name": f"{plan.llama} 2 nodes x {half} (launch)", "model": plan.llama,
+            "mesh": {"slice": 2, "fsdp": half}, "losses": first["losses"], "step_s": step_s,
+            "tokens_per_s": first["tokens_per_step"] / step_s,
+            "flops_per_token": llama.CONFIGS[plan.llama].flops_per_token(plan.seq),
+            "ranks": [{"launches": {k: n / steps for k, n in runs[r]["launches"].items()},
+                       "all_to_all": 0.0, "ppermute": 0.0, "peak_bytes": runs[r]["peak_bytes"],
+                       "expect": None} for r in sorted(runs)],
+            "replicas": max(r["mismatched"] for r in replicas), "ref": "llama", "kernels": True,
+            "same_as": f"{plan.llama} slice=2 x fsdp={half}"}
+
+
+REPLICAS = "[n] replicas "  # a launch row child's line: its replica_mismatches
+
+
+def train_main(plan: Plan, argv: list) -> int:
+    """A child of the launch row: what ``llama_train.main`` does (a setup
+    and a run of ``argv``) on the plan's models, then the replicas' check
+    of the trained parameters."""
+    import torch.distributed as dist
+
+    fp32_on_cpu(plan)
+    from tf_operator_tpu_torch.train import llama_train
+
+    args = llama_train.parse_args(argv)
+    s = llama_train.setup(args)
+    llama_train.run(args, s)
+    print(REPLICAS + json.dumps({"process": dist.get_rank(),
+                                 "mismatched": replica_mismatches(s.state.model, s.mesh)}),
+          flush=True)
+    dist.destroy_process_group()
+    return 0
 
 
 def interleave(parts: list, rows: int) -> torch.Tensor:
@@ -415,6 +537,18 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
             fails.append(f"{what}: losses {losses} against one card's {ref['losses']}")
         log(f"[n] {what}: losses {losses} against one card {ref['losses']}: worst rel "
             f"{worst:.3e} (tol {tol})")
+    if "twin" in row:
+        worst_twin = max(cs.rel(a, b) for a, b in zip(losses, row["twin"]))
+        log(f"[n] {what}: losses {losses} against the {row['same_as']} row's {row['twin']}: "
+            f"worst rel {worst_twin:.3e} (tol {cs.LOSS_TOL}), bit-equal {losses == row['twin']}")
+        if len(losses) != len(row["twin"]) or not worst_twin <= cs.LOSS_TOL:
+            fails.append(f"{what}: losses {losses} against the {row['same_as']} row's "
+                         f"{row['twin']}")
+    if row.get("replicas") is not None:
+        log(f"[n] {what}: parameters whose shard differs from its replica's across the "
+            f"replicate dim: {row['replicas']} (must be 0)")
+        if row["replicas"]:
+            fails.append(f"{what}: {row['replicas']} parameters differ between replicas")
     if "stats_rel" in row:
         name, value = row["stats_rel"]
         log(f"[n] {what}: rank 0's running statistics after {len(losses)} steps against one "
@@ -432,11 +566,13 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
             fails.append(f"{what}: first loss {losses[0]} is far from "
                          f"{row['first_loss_target']}")
     launches = ranks[0]["launches"]
+    every = [r["launches"] for r in ranks]
+    shown = f"{launches} (every rank)" if every.count(launches) == len(every) else every
     a2a = [r["all_to_all"] for r in ranks]
     unit = row.get("unit", "tokens")
     log(f"[n] {what}: step {row['step_s']:.4f} s, {unit}/s {row['tokens_per_s']:.1f} "
         f"({per_card:.1f} a card), MFU {mfu:.4f}; peak memory of the fullest card "
-        f"{peak / 1e9:.3f} GB; launches a step a card {launches}; all-to-alls a step a "
+        f"{peak / 1e9:.3f} GB; launches a step a card {shown}; all-to-alls a step a "
         f"card {a2a}")
     if row.get("a2a_expected") and not all(n > 0 for n in a2a):
         fails.append(f"{what}: no all-to-all ran")
@@ -493,7 +629,11 @@ def main(argv=None) -> int:
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--tmp", default="")
     parser.add_argument("--tokens", default="")
+    parser.add_argument("--train", nargs=argparse.REMAINDER,
+                        help="a child of the launch row: llama_train's arguments")
     args = parser.parse_args(argv)
+    if args.train is not None:
+        return train_main(Plan.for_device(args.device, args.procs), args.train)
     if args.worker:
         return worker(Plan.for_device(args.device, args.procs), args.tmp, args.tokens)
     if args.device == "cuda":
@@ -526,10 +666,14 @@ def main(argv=None) -> int:
         if plan.device == "cuda":
             torch.cuda.empty_cache()
         rows = spawn(plan, tmp, tokens)
+        rows.append(launch_row(plan, tmp, tokens))
         routes = torch.load(os.path.join(tmp, "routes.pt"))
         dp_stats = torch.load(os.path.join(tmp, "resnet_stats.pt"))
     fails = []
+    by_name = {row["name"]: row for row in rows}
     for row in rows:
+        if "same_as" in row:
+            row["twin"] = by_name[row["same_as"]]["losses"]
         if row["name"] in routes:
             row["routes"] = flips(routes[row["name"]], moe_routes)
         if row.get("ref") == "resnet":
@@ -546,7 +690,8 @@ def main(argv=None) -> int:
     log(json.dumps({"ok": not fails, "cards": procs, "rows": [
         {k: row.get(k) for k in ("name", "mesh", "losses", "step_s", "per_card_tokens_per_s",
                                  "mfu", "peak_bytes", "worst_rel", "routes", "a2a_ms",
-                                 "a2a_alone_ms", "restore_equal", "ppermute", "stats_rel")}
+                                 "a2a_alone_ms", "restore_equal", "ppermute", "stats_rel",
+                                 "replicas")}
         for row in rows]}))
     return 0 if not fails else 1
 
@@ -606,6 +751,11 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
                    ref="llama")
     layout(f"{plan.llama} fsdp={half} x tp=2", {"fsdp": half, "tp": 2},
            llama_args(plan, plan.llama, tokens), ref="llama")
+    # The multislice layout, HSDP: replicated over slice (or dp), sharded
+    # over fsdp inside each half of the cards.
+    for spec in ({"slice": 2, "fsdp": half}, {"dp": 2, "fsdp": half}):
+        layout(f"{plan.llama} " + " x ".join(f"{a}={k}" for a, k in spec.items()), spec,
+               llama_args(plan, plan.llama, tokens), ref="llama")
     moe_args = llama_args(plan, plan.moe, tokens)
     ep = layout(f"{plan.moe} ep={n}", {"ep": n}, moe_args, ref="moe", moe=True)
     layout(f"{plan.moe} fsdp={n}", {"fsdp": n}, moe_args, ref="moe", moe=True)

@@ -42,6 +42,8 @@ MODULES = [
     "tf_operator_tpu_torch.train.restore",
     "tf_operator_tpu_torch.native.build",
     "tf_operator_tpu_torch.runtime.gpu_init",
+    "tf_operator_tpu_torch.runtime.launch",
+    "tf_operator_tpu_torch.api.gpu",
     "tf_operator_tpu_torch.runtime.heartbeat",
     "tf_operator_tpu_torch.runtime.shard_server",
     "tf_operator_tpu_torch.runtime.profiling",

@@ -13,7 +13,8 @@ JAX_NUM_SLICES, JAX_SLICE_INDEX, JAX_MESH_SPEC and the workload-side
 JAX_SLICE_LOCAL_WORLD. When a PyTorchJob launches the workload, its c10d
 env (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; ``bootstrap/c10d.py``) is
 read instead. LOCAL_RANK, else the rank modulo the card count, picks the
-card.
+card; the per-node launcher (``runtime/launch.py``) sets it and
+LOCAL_WORLD_SIZE, and a launched process logs its node and local rank.
 
 The rendezvous is ``init_process_group`` over a ``tcp://`` store at the
 coordinator address: NCCL on CUDA, gloo only when the caller asks for the
@@ -58,6 +59,7 @@ ENV_MASTER_PORT = "MASTER_PORT"
 ENV_WORLD_SIZE = "WORLD_SIZE"
 ENV_RANK = "RANK"
 ENV_LOCAL_RANK = "LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
 
 
 @dataclass(frozen=True)
@@ -177,6 +179,18 @@ def local_device_index(topology: Topology, env: Optional[Dict[str, str]] = None)
     return topology.process_id % max(torch.cuda.device_count(), 1)
 
 
+def launch_note(topology: Topology, env: Optional[Dict[str, str]] = None) -> str:
+    """"process i/n node p local rank l/G slice s/S" for a process the
+    per-node launcher started (LOCAL_WORLD_SIZE set), else ""."""
+    env = os.environ if env is None else env
+    if not env.get(ENV_LOCAL_WORLD_SIZE):
+        return ""
+    local, per_node = int(env.get(ENV_LOCAL_RANK, "0")), int(env[ENV_LOCAL_WORLD_SIZE])
+    return (f"process {topology.process_id}/{topology.num_processes} node "
+            f"{topology.process_id // per_node} local rank {local}/{per_node} slice "
+            f"{topology.slice_index}/{topology.num_slices}")
+
+
 def initialize(topology: Optional[Topology] = None, *, device=None,
                timeout_seconds: Optional[int] = None) -> Topology:
     """Rendezvous this process: ``init_process_group`` against the
@@ -189,6 +203,9 @@ def initialize(topology: Optional[Topology] = None, *, device=None,
     heartbeat.start_from_env()
     topo = topology or c10d_topology_from_env() or topology_from_env()
     device = resolve_device(device)
+    note = launch_note(topo)
+    if note and not dist.is_initialized():
+        print(f"[gpu_init] {note}", flush=True)
     if not topo.distributed or dist.is_initialized():
         return topo
     if device.type == "cuda":
@@ -204,6 +221,17 @@ def initialize(topology: Optional[Topology] = None, *, device=None,
     return topo
 
 
+def job_mesh_axes(declared: Dict[str, int], num_slices: int,
+                  slice_world: bool = False) -> Dict[str, int]:
+    """The axes a job's ranks build from the mesh it declared: a job over
+    several slices (not slice-local worlds) gets its ``slice`` axis
+    whether declared or not."""
+    axes = dict(declared)
+    if num_slices > 1 and not slice_world and "slice" not in axes:
+        axes["slice"] = num_slices
+    return axes
+
+
 def mesh_axes_for(topology: Topology, n: int, device_type: str) -> Dict[str, int]:
     """The axes of the mesh the job declared (JAX_MESH_SPEC), for ``n``
     ranks; a multislice job gets its ``slice`` axis whether declared or
@@ -211,9 +239,7 @@ def mesh_axes_for(topology: Topology, n: int, device_type: str) -> Dict[str, int
     other than ``n`` is a misconfigured job on the card and is refused; on
     a CPU run the caller asked for, it warns and falls back to the
     default."""
-    axes = dict(topology.mesh_axes)
-    if topology.num_slices > 1 and not topology.slice_world and "slice" not in axes:
-        axes["slice"] = topology.num_slices
+    axes = job_mesh_axes(topology.mesh_axes, topology.num_slices, topology.slice_world)
     declared = 1
     for size in axes.values():
         declared *= size

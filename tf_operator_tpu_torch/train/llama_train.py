@@ -24,7 +24,8 @@ Batches come from ``SyntheticTokens`` or, with ``--data``, from a token
 file through the native loader, and reach the card through
 ``DevicePrefetch``. Prints the JAX script's ``[llama] process i/n
 devices=N mesh={...}`` and ``[llama] step N loss X tokens/sec Y (Z/chip)``
-lines, and publishes the step and tokens/s on the heartbeat at the log
+lines, ends on ``[llama] done {...}`` (a JSON object of the losses, the
+window, the kernels' launches and the peak memory), and publishes the step and tokens/s on the heartbeat at the log
 cadence. Each step's loss stays on the device: the host reads it only at
 a log step (the run's first, every ``--log-every``-th and its last), so
 the steps between queue ahead of the card as the JAX script's do, and
@@ -49,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -60,6 +62,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models import llama
+from ..ops import build
 from ..parallel.mesh import mesh_axes
 from ..parallel.sharding import data_coords
 from ..runtime import gpu_init
@@ -351,7 +354,15 @@ def _train(args: argparse.Namespace, s: Setup) -> dict:
         if s.ckpt.save(state, force=True):
             save_seconds.append(time.perf_counter() - t_save)
     losses = losses.tolist()
-    print("[llama] done", flush=True)
+    # What a process that started this one reads back (the per-node
+    # launcher's children): the losses, the window, the kernels' launches
+    # and the peak memory.
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print("[llama] done " + json.dumps({
+        "process": s.topology.process_id, "losses": losses, "window_steps": window_steps,
+        "window_seconds": window_seconds, "tokens_per_step": args.batch * args.seq,
+        "launches": {k: n for k, n in build.LAUNCHES.items() if n}, "peak_bytes": peak}),
+        flush=True)
     return {"config": s.config, "losses": losses, "window_steps": window_steps,
             "window_seconds": window_seconds,
             "tokens_per_step": args.batch * args.seq, "device": name, "mesh": mesh,
