@@ -158,10 +158,29 @@ Phases (any failure raises and the script exits non-zero):
       train.llama_train`` with phase e's arguments under the env the
       operator gives the pod of a 1-node JAXJob of one card (:func:`node_env`);
       the run's ``[llama] done`` summary: its 4 losses phase e's (LOSS_TOL)
-      at phase e's launches a step of the four kernels.
+      at phase e's launches a step of the four kernels;
+  (r) the recovery plane: two slice-local worlds share the card through two
+      launchers (``--nproc-per-node 1``) under the env of a 2-node,
+      2-slice JAXJob with JAX_SLICE_LOCAL_WORLD=1 and TPU_SHARD_SERVER=1
+      (:func:`slice_env`), each training llama-400m with phase e's
+      arguments from phase g's token file, RECOVERY_STEPS steps, a
+      checkpoint every RECOVERY_EVERY; slice 1's launcher is SIGKILLed
+      with its child (the process group) after its first durable
+      checkpoint and started again with TPU_PEER_RESTORE_ADDRS set to
+      slice 0's published address: it must resume through a peer rung
+      with slice 0's bytes of that step (the digests of the verified
+      checksums and of slice 0's manifest), its losses slice 0's at the
+      same steps (LOSS_TOL) at phase e's launches a step, while slice 0
+      runs to its end in the same process; both restores' and persists'
+      seconds splits and the telemetry families' series (their sums and
+      counts, not their buckets) are printed; then
+      ``scripts/measure_recovery_torch.py --smoke`` at llama-400m's state,
+      one trial a leg, its gates on, its legs' seconds printed.
 
 Phases e-m each reset the launch counters just before their runs and read
-them just after. The last lines are the nvidia-smi line, one JSON line of
+them just after; the launched runs of q and r count in their own
+processes and report the counts in their ``[llama] done`` summaries.
+The last lines are the nvidia-smi line, one JSON line of
 per-kernel results (launches from phase e, from phase k's einsum run for
 the entries named "...[moe-125m]", timed at its shapes, and from phase l's
 window for the "..._d64" entries, timed at bert-base's), and {"ok": true,
@@ -1585,14 +1604,16 @@ def phase_j(steps: int = 32, timeout: float = 600.0) -> None:
             raise AssertionError(f"the trace misses a hand-written kernel: {seen}")
 
 
-def node_env(nodes: int, node: int, gpus: int, port: int) -> dict:
+def node_env(nodes: int, node: int, gpus: int, port: int, mesh: dict = None) -> dict:
     """The env the operator gives pod ``node`` of a JAXJob that
     ``tf_operator_tpu_torch.api.gpu.gpu_job`` renders for ``nodes`` nodes
-    of ``gpus`` cards (``numSlices`` = nodes, its default mesh), written
-    out here with every service host on this machine's loopback and the
-    coordinator on ``port``: the JAXJob contract of one process a node,
-    which the per-node launcher turns into one process a card."""
-    mesh = {"slice": nodes, "fsdp": gpus} if nodes > 1 else {"fsdp": gpus}
+    of ``gpus`` cards (``numSlices`` = nodes, its default mesh unless
+    ``mesh`` is given), written out here with every service host on this
+    machine's loopback and the coordinator on ``port``: the JAXJob contract
+    of one process a node, which the per-node launcher turns into one
+    process a card."""
+    if mesh is None:
+        mesh = {"slice": nodes, "fsdp": gpus} if nodes > 1 else {"fsdp": gpus}
     env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": str(nodes),
            "JAX_PROCESS_ID": str(node), "TPU_WORKER_ID": "0",
            "TPU_WORKER_HOSTNAMES": "127.0.0.1", "JAX_NUM_SLICES": str(nodes),
@@ -1658,6 +1679,206 @@ def phase_q(main: dict, timeout: float = 600.0) -> None:
         raise AssertionError(f"launches a step {per_step} through the launcher, phase e {want}")
 
 
+# Phase (r): the recovery plane on one card. Two slice-local worlds of one
+# card each share it, a checkpoint every RECOVERY_EVERY steps: a persist
+# of llama-400m's 2.24 GB state takes 5.0-5.2 s (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6), so a save every 3 steps (0.6 s) would queue
+# snapshots, 2.24 GB of pinned host memory each, faster than the persists
+# drain them. RECOVERY_STEPS is enough that slice 0 still trains when
+# slice 1 has restarted.
+RECOVERY_STEPS = 180
+RECOVERY_EVERY = 20
+
+
+def slice_env(slice_index: int, port: int, beat: str, peers: str = "", gpus: int = 1) -> dict:
+    """The env of the pod of slice ``slice_index`` of a 2-node, 2-slice
+    JAXJob of ``gpus`` cards a node (:func:`node_env`, the mesh of one
+    slice) whose template sets JAX_SLICE_LOCAL_WORLD, with the operator's
+    peer restore on (TPU_SHARD_SERVER; TPU_PEER_RESTORE_ADDRS on a rebuilt
+    pod) and the heartbeat file the process backend gives a pod."""
+    env = {**os.environ, **node_env(2, slice_index, gpus, port, mesh={"fsdp": gpus}),
+           "JAX_SLICE_LOCAL_WORLD": "1", "TPU_SHARD_SERVER": "1",
+           "TPU_HEARTBEAT_LEASE": f"recovery-worker-{slice_index}-hb",
+           "TPU_HEARTBEAT_FILE": beat, "TPU_HEARTBEAT_INTERVAL_SECONDS": "1"}
+    if peers:
+        env["TPU_PEER_RESTORE_ADDRS"] = peers
+    return env
+
+
+def published_peer(beat: str, proc, timeout: float) -> dict:
+    """The heartbeat file ``beat`` once it carries the shard server's
+    address (a survivor publishes it after its restore), while ``proc``
+    runs; ``{}`` when it never does."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and proc.poll() is None:
+        survivor = read_json(beat) or {}
+        if survivor.get("peer_addr"):
+            return survivor
+        time.sleep(0.05)
+    return {}
+
+
+def watch_manifests(directory: str, seen: dict, stop: threading.Event) -> None:
+    """Keep ``{step: {shard: checksum}}`` of every manifest that appears
+    in ``directory`` (the store's retention deletes old ones)."""
+    while not stop.is_set():
+        try:
+            names = os.listdir(directory)
+        except OSError:
+            names = []
+        for name in names:
+            m = re.fullmatch(r"manifest-(\d+)\.json", name)
+            if m and int(m[1]) not in seen:
+                manifest = read_json(os.path.join(directory, name))
+                if manifest:
+                    seen[int(m[1])] = {n: e["checksum"] for n, e in manifest["shards"].items()}
+        stop.wait(0.05)
+
+
+def phase_r(main: dict, timeout: float = 900.0) -> None:
+    """The recovery plane of a 2-slice GPU job on one card: two launchers
+    (``--nproc-per-node 1``) of slice-local worlds train llama-400m with
+    phase e's arguments from phase g's seeded token file; slice 1 is
+    SIGKILLed as a process group, as the operator's process backend
+    deletes a pod (its launcher and its child together; the child would
+    also die with the launcher alone, by its parent-death signal), after
+    its first durable checkpoint, and started again with slice 0's published address. It
+    must resume through a peer rung with the bytes slice 0 persisted at
+    that step (the digest of the checksums it verified against the one of
+    slice 0's manifest), at slice 0's losses and phase e's launches; slice
+    0 runs on undisturbed, its process the same. Then the recovery legs
+    of ``scripts/measure_recovery_torch.py`` at llama-400m's state."""
+    from tf_operator_tpu_torch.train.restore import checksum_digest
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = seeded_tokens(tmp)
+        root, port = os.path.join(tmp, "ckpt"), free_port()
+        beats = [os.path.join(tmp, f"beat{s}.json") for s in range(2)]
+        command = launch_argv(1, [
+            sys.executable, "-m", "tf_operator_tpu_torch.train.llama_train", *MAIN_ARGS,
+            "--steps", str(RECOVERY_STEPS), "--checkpoint-every", str(RECOVERY_EVERY),
+            "--checkpoint-dir", root, "--data", path, "--data-dtype", "uint16"])
+        logs = {}
+
+        def start(slice_index: int, tag: str, peers: str = ""):
+            logs[tag] = os.path.join(tmp, f"{tag}.log")
+            with open(logs[tag], "w") as out:
+                return subprocess.Popen(command, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                        env=slice_env(slice_index, port, beats[slice_index], peers),
+                                        start_new_session=True)
+
+        seen, stop = {}, threading.Event()
+        watcher = threading.Thread(target=watch_manifests, daemon=True,
+                                   args=(os.path.join(root, "slice-0", "delta"), seen, stop))
+        watcher.start()
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            procs += [start(0, "slice0"), start(1, "slice1")]
+            first_pid = procs[0].pid
+            durable = None
+            while time.perf_counter() - t0 < timeout:
+                durable = (read_json(beats[1]) or {}).get("checkpoint_step")
+                if durable is not None or procs[1].poll() is not None:
+                    break
+                time.sleep(0.05)
+            os.killpg(procs[1].pid, signal.SIGKILL)
+            procs[1].wait(60)
+            killed = time.perf_counter() - t0
+            survivor = published_peer(beats[0], procs[0], 60.0)
+            log(f"[r] slice 1 SIGKILLed (its process group) {killed:.1f} s after the start, at "
+                f"its durable checkpoint_step {durable}; slice 0 at step "
+                f"{survivor.get('step')}, durable {survivor.get('checkpoint_step')}, serving at "
+                f"{survivor.get('peer_addr')}")
+            if durable is None or procs[0].poll() is not None or not survivor.get("peer_addr"):
+                raise AssertionError(f"slice 1 made no durable checkpoint while slice 0 "
+                                     f"trained and served: {survivor}")
+            t1 = time.perf_counter()
+            procs.append(start(1, "slice1-restarted", survivor["peer_addr"]))
+            for p in (procs[0], procs[2]):
+                p.wait(max(timeout - (time.perf_counter() - t0), 1.0))
+            log(f"[r] slice 1 restarted in {time.perf_counter() - t1:.1f} s to its end; slice 0 "
+                f"(pid {procs[0].pid}, first {first_pid}) exited {procs[0].returncode}, the "
+                f"restarted slice 1 {procs[2].returncode}")
+        finally:
+            stop.set()
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        texts = {tag: open(p).read() for tag, p in logs.items()}
+        runs = {tag: done_lines(text).get(0) for tag, text in texts.items()}
+        for tag, text in texts.items():
+            for line in text.splitlines():
+                if line.startswith(("[gpu_init]", "[llama] process", "[llama] resumed")):
+                    log(f"[r] {tag}| {line}")
+        for tag in ("slice0", "slice1-restarted"):
+            if runs[tag]:
+                log(f"[r] {tag}: restore {runs[tag]['restore']}; last persist "
+                    f"{runs[tag]['persist']}")
+        if (procs[0].pid != first_pid or procs[0].returncode != 0 or procs[2].returncode != 0
+                or not runs["slice0"] or not runs["slice1-restarted"]):
+            raise AssertionError(
+                f"slice 0 exited {procs[0].returncode}, the restarted slice 1 "
+                f"{procs[2].returncode}:\n{texts['slice0'][-3000:]}"
+                f"{texts['slice1-restarted'][-3000:]}")
+        zero, one = runs["slice0"], runs["slice1-restarted"]
+        restore, k = one["restore"], one["start_step"]
+        want = checksum_digest(seen[k]) if k in seen else None
+        log(f"[r] slice 1 resumed at step {k} via {restore['path']} ({restore['cause']}), "
+            f"{restore['bytes_moved']} bytes in {restore['seconds']:.3f} s; digest "
+            f"{restore['digest']}, slice 0's manifest of step {k}: {want}")
+        if (restore["path"] not in ("peer", "peer-sharded") or restore["cause"] != "ok"
+                or want is None or restore["digest"] != want):
+            raise AssertionError(f"slice 1 did not resume through a peer with slice 0's bytes "
+                                 f"of step {k}: {restore}, manifests seen {sorted(seen)}")
+        check_losses("r", f"slice 1 from step {k} against slice 0", one["losses"],
+                     zero["losses"][k:])
+        per_step = {n: one["launches"].get(n, 0) / len(one["losses"]) for n in KERNEL_SYMBOLS}
+        expect = {n: main["per_step"][n] for n in KERNEL_SYMBOLS}
+        log(f"[r] restarted slice 1: {len(one['losses'])} steps, launches a step {per_step} "
+            f"(phase e: {expect}); peak {one['peak_bytes'] / 2**30:.3f} GiB")
+        if per_step != expect:
+            raise AssertionError(f"launches a step {per_step}, phase e {expect}")
+        for tag, run in (("slice 0", zero), ("slice 1 restarted", one)):
+            for line in run["telemetry"].splitlines():
+                if not line.startswith("#") and "_bucket{" not in line:
+                    log(f"[r] {tag} telemetry| {line}")
+    recovery_legs()
+
+
+def recovery_legs() -> None:
+    """``scripts/measure_recovery_torch.py`` on the card at llama-400m's
+    state, one trial a leg, its gates on; its legs' seconds printed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts", "measure_recovery_torch.py"),
+             "--trials", "1", "--smoke", "--baseline", os.path.join(tmp, "baseline.json")],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[r] {line}")
+    log(f"[r] measure_recovery_torch exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the recovery legs failed:\n{proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    restart = out["restart"]
+    log(f"[r] legs: stall {out['snapshot_stall_s']} s, persist {out['persist_s']} s "
+        f"{out['persist']['split']}; A storage {out['latency']['storage_raw_s']} s (modelled "
+        f"{out['latency']['storage_modeled_s']}) peer {out['latency']['peer_s']} s; D restart "
+        f"to resumed storage {restart['storage']['restart_to_resumed_s']} s, peer "
+        f"{restart['peer']['restart_to_resumed_s']} s; E single "
+        f"{out['sharded']['single_survivor_s']} s sharded {out['sharded']['sharded_restore_s']} "
+        f"s; G {out['warm_start']['seconds']} s; H delta fraction "
+        f"{out['delta']['delta_persist_fraction']}, have-list {out['delta']['have_list_fraction']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1700,6 +1921,7 @@ def main() -> int:
     phase_o(build)
     phase_p(peak)
     phase_q(main)
+    phase_r(main)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

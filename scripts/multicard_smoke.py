@@ -28,7 +28,10 @@ seed; then, in the N processes, the rows:
   slice=2 x fsdp=N/2 row's (``LOSS_TOL``), every rank's launches and
   peak memory from its ``[llama] done`` summary; in the three HSDP rows
   every parameter shard bit-equal to its replica's across the replicate
-  dim after the last step (:func:`replica_mismatches`);
+  dim after the last step (:func:`replica_mismatches`); then the
+  recovery plane over the same 2 nodes (:func:`slice_local_row`): each
+  node a slice-local world of N/2 ranks, slice 1 killed and restored by
+  each rank from its own peer, its losses slice 0's;
 - moe-125m over ep=N, over fsdp=N (the expert axis is fsdp: 8 experts
   divide it) and over ep=2 x fsdp=N/2, global batch 8N: the first loss at
   ``LOSS_TOL``, the later ones at ``PARITY_TOL["loss"]``, with the share
@@ -80,6 +83,7 @@ import glob
 import json
 import math
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -460,6 +464,114 @@ def launch_row(plan: Plan, tmp: str, tokens: str) -> dict:
 
 
 REPLICAS = "[n] replicas "  # a launch row child's line: its replica_mismatches
+# The slice-local row: enough steps that slice 0 still trains when slice 1
+# has restarted, a checkpoint every SLICE_LOCAL_EVERY.
+SLICE_LOCAL_STEPS = 160
+SLICE_LOCAL_EVERY = 20
+
+
+def slice_local_row(plan: Plan, tmp: str, tokens: str, refs: dict) -> list:
+    """The recovery plane over 2 nodes of N/2 cards: two launchers, each
+    on its half of the cards, under the env of a 2-node, 2-slice JAXJob
+    with JAX_SLICE_LOCAL_WORLD=1 and TPU_SHARD_SERVER=1, so that each node
+    is a slice-local world of N/2 ranks (fsdp=N/2) with its own
+    checkpoint stream (DCP) and each rank serves its own shards. Slice 1's
+    launcher and children are SIGKILLed as a process group after its first
+    durable checkpoint and started again with slice 0's published
+    address: every rank must restore its own shards from its peer at one
+    step (``peer``; each rank's digest its own), and slice 1's losses from
+    there must be slice 0's (``LOSS_TOL``); slice 0's first two losses
+    are the one-card run's (the schedule's length enters from the third).
+    Each rank's restore path, cause and seconds split is printed. Returns
+    the failures."""
+    half = plan.procs // 2
+    port = cs.free_port()
+    root = os.path.join(tmp, "slice-local")
+    beats = [os.path.join(tmp, f"slice-beat{node}.json") for node in range(2)]
+    command = cs.launch_argv(half, [
+        sys.executable, os.path.abspath(__file__), "--device", plan.device, "--procs",
+        str(plan.procs), "--train", *llama_args(plan, plan.llama, tokens, SLICE_LOCAL_STEPS),
+        "--checkpoint-dir", root, "--checkpoint-every", str(SLICE_LOCAL_EVERY)])
+    paths = {}
+
+    def start(node: int, tag: str, peers: str = ""):
+        env = cs.slice_env(node, port, beats[node], peers, gpus=half)
+        if plan.device == "cuda":
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(node * half + i) for i in range(half))
+        else:
+            env["OMP_NUM_THREADS"] = "1"
+        paths[tag] = os.path.join(tmp, f"{tag}.log")
+        with open(paths[tag], "w") as out:
+            return subprocess.Popen(command, cwd=ROOT, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT, start_new_session=True)
+
+    procs = [start(0, "slice0"), start(1, "slice1")]
+    fails = []
+    try:
+        deadline = time.monotonic() + WORKER_TIMEOUT
+        durable = None
+        while time.monotonic() < deadline and procs[1].poll() is None:
+            durable = (cs.read_json(beats[1]) or {}).get("checkpoint_step")
+            if durable is not None:
+                break
+            time.sleep(0.05)
+        os.killpg(procs[1].pid, signal.SIGKILL)
+        procs[1].wait()
+        survivor = cs.published_peer(beats[0], procs[0], 120.0)
+        log(f"[n] slice-local: slice 1 SIGKILLed (its process group) at its durable step "
+            f"{durable}; slice 0 durable {survivor.get('checkpoint_step')}, serving at "
+            f"{survivor.get('peer_addr')}")
+        if durable is None or procs[0].poll() is not None or not survivor.get("peer_addr"):
+            raise AssertionError(f"slice 1 made no durable checkpoint while slice 0 served: "
+                                 f"{survivor}")
+        procs.append(start(1, "slice1-restarted", survivor["peer_addr"]))
+        wait_all([procs[0], procs[2]])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    texts = {tag: open(path).read() for tag, path in paths.items()}
+    zero, one = cs.done_lines(texts["slice0"]), cs.done_lines(texts["slice1-restarted"])
+    for tag in ("slice0", "slice1-restarted"):
+        for line in texts[tag].splitlines():
+            if line.startswith(("[gpu_init]", "[llama] resumed")):
+                log(f"[n] slice-local {tag}| {line}")
+    codes = [p.returncode for p in (procs[0], procs[2])]
+    if codes != [0, 0] or sorted(zero) != list(range(half)) or sorted(one) != list(range(half)):
+        for tag, text in texts.items():
+            for line in text.splitlines()[-40:]:
+                log(f"[n] slice-local {tag}| {line}")
+        return [f"slice-local: slice 0 and the restarted slice 1 exited {codes} with the "
+                f"summaries of ranks {sorted(zero)} and {sorted(one)}"]
+    restores = [one[r]["restore"] for r in range(half)]
+    for r, restore in enumerate(restores):
+        log(f"[n] slice-local: restarted slice 1 rank {r}: {restore['path']} "
+            f"({restore['cause']}) at step {restore['step']}, {restore['bytes_moved']} bytes in "
+            f"{restore['seconds']:.3f} s, split {restore['split']}, digest {restore['digest']}; "
+            f"last persist {one[r]['persist']}")
+    steps = {restore["step"] for restore in restores}
+    if any((x["path"], x["cause"]) != ("peer", "ok") for x in restores) or len(steps) != 1:
+        fails.append(f"slice-local: the restarted ranks' restores {restores}")
+    if len({x["digest"] for x in restores}) != half:
+        fails.append("slice-local: two ranks restored the same shards")
+    k = one[0]["start_step"]
+    for r in range(half):
+        worst = max(cs.rel(a, b) for a, b in zip(one[r]["losses"], zero[r]["losses"][k:]))
+        log(f"[n] slice-local rank {r}: {len(one[r]['losses'])} steps from step {k} against "
+            f"slice 0's: worst rel {worst:.3e} (tol {cs.LOSS_TOL}), bit-equal "
+            f"{one[r]['losses'] == zero[r]['losses'][k:]}; launches a step "
+            f"{ {n: c / len(one[r]['losses']) for n, c in one[r]['launches'].items()} }")
+        if worst > cs.LOSS_TOL or len(one[r]["losses"]) != SLICE_LOCAL_STEPS - k:
+            fails.append(f"slice-local rank {r}: losses from step {k} against slice 0's")
+    first = max(cs.rel(a, b) for a, b in zip(zero[0]["losses"][:2], refs["llama"]["losses"]))
+    log(f"[n] slice-local: slice 0's first losses {zero[0]['losses'][:2]} against one card's "
+        f"{refs['llama']['losses'][:2]}: worst rel {first:.3e} (tol {cs.LOSS_TOL})")
+    if first > cs.LOSS_TOL:
+        fails.append("slice-local: slice 0's first losses against one card's")
+    if plan.device == "cuda" and not all(one[r]["launches"] for r in range(half)):
+        fails.append("slice-local: no kernel launched")
+    return fails
 
 
 def train_main(plan: Plan, argv: list) -> int:
@@ -667,9 +779,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         rows = spawn(plan, tmp, tokens)
         rows.append(launch_row(plan, tmp, tokens))
+        slice_fails = slice_local_row(plan, tmp, tokens, refs)
         routes = torch.load(os.path.join(tmp, "routes.pt"))
         dp_stats = torch.load(os.path.join(tmp, "resnet_stats.pt"))
-    fails = []
+    fails = list(slice_fails)
     by_name = {row["name"]: row for row in rows}
     for row in rows:
         if "same_as" in row:

@@ -19,6 +19,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "tf_operato
 MODULES = [
     "tf_operator_tpu_torch",
     "tf_operator_tpu_torch.device",
+    "tf_operator_tpu_torch.metrics",
     "tf_operator_tpu_torch.ops.build",
     "tf_operator_tpu_torch.ops.roofline",
     "tf_operator_tpu_torch.ops.rope",
@@ -55,6 +56,7 @@ MODULES = [
     "tf_operator_tpu_torch.parallel.pipeline",
     "tf_operator_tpu_torch.testing.rendezvous_workload",
     "tf_operator_tpu_torch.testing.parity_workload",
+    "tf_operator_tpu_torch.testing.restore_faults",
     "chip_smoke",
 ]
 
@@ -75,6 +77,7 @@ def test_imports_with_jax_and_the_jax_package_blocked():
         f"import importlib\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import runpy; runpy.run_path('scripts/multicard_smoke.py', run_name='multicard_smoke')\n"
+        "runpy.run_path('scripts/measure_recovery_torch.py', run_name='measure_recovery_torch')\n"
         "from tf_operator_tpu_torch.ops import build\n"
         "assert build._lib is None, 'a kernel library was loaded at import'\n"
         "print('imported')\n"
@@ -96,7 +99,8 @@ def _imported_roots(path):
 
 def test_no_forbidden_import_anywhere_in_the_port():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "scripts" / "multicard_smoke.py"]
+                                          ROOT / "scripts" / "multicard_smoke.py",
+                                          ROOT / "scripts" / "measure_recovery_torch.py"]
     assert len(files) > 10
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))

@@ -240,9 +240,13 @@ def test_rank_env_of_both_contracts():
 
 
 def test_what_the_launcher_refuses(monkeypatch, capsys):
+    # A slice-local world over 2 cards a node is no longer refused: the
+    # slice's world is its hosts times the local ranks (gpu_init).
     local = {**JAX_POD, "JAX_SLICE_LOCAL_WORLD": "true", "TPU_WORKER_HOSTNAMES": "h"}
-    with pytest.raises(ValueError, match="item 4a, slice-local worlds through the launcher"):
-        launch.rank_env(local, 0, 2)
+    for nproc in (1, 2):
+        for rank in range(nproc):
+            topo = gpu_init.topology_from_env(launch.rank_env(local, rank, nproc))
+            assert (topo.slice_world, topo.num_processes, topo.process_id) == (True, nproc, rank)
     assert launch.rank_env(local, 0, 1)["JAX_PROCESS_ID"] == "2"  # one card a node: as it was
     with pytest.raises(ValueError, match="neither the JAXJob contract"):
         launch.rank_env({"PATH": "/bin", "MASTER_ADDR": "m", "RANK": "0"}, 0, 1)

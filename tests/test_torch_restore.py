@@ -3,13 +3,15 @@ the CPU.
 
 The seeded scenarios of ``tests/test_recovery_chaos.py`` (the ladder, the
 sharded ladder and the torn delta chain) run twice under the same
-``ChaosSpec``: once through the JAX package with a JAX state, once
-through the port with a torch state holding the same values in the same
-number of tensors (step, w, count and two moments). Each must give the
-same ``(path, cause, step)``, the same shard sources and the same fault
-log, and replay it byte-identically; the port's restored values are
-checked too. The JAX package's ``RestoreFaultInjector`` drives the port
-unchanged (the port only calls its ``fault_for``). Then the ladder's
+schedule: once through the JAX package with a JAX state and its
+``ChaosSpec``'s injector, once through the port with a torch state holding
+the same values in the same number of tensors (step, w, count and two
+moments) and the port's copy of the injector
+(``tf_operator_tpu_torch/testing/restore_faults.py``). Each must give the
+same ``(path, cause, step)``, the same shard sources, the same fault log
+and the same ``training_restore_total{path,cause}`` counts in its
+package's registry, and replay it byte-identically; the port's restored
+values are checked too. Then the ladder's
 edges on the port alone: exact bf16 bytes over the bundle and the
 per-shard wire, the have-list, geometry refusals that leave the state
 untouched, warm start, per-shard storage fill and its step rule."""
@@ -28,12 +30,15 @@ from tf_operator_tpu.cluster.chaos import (
     ScheduledRestoreFault,
 )
 from tf_operator_tpu.cluster.memory import InMemoryCluster
+from tf_operator_tpu.metrics import METRICS as JAX_METRICS
 from tf_operator_tpu.runtime.shard_server import start_shard_server as jax_start_shard_server
 from tf_operator_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
 from tf_operator_tpu.train.restore import restore_with_fallback as jax_restore
 from tf_operator_tpu.train.train_step import TrainState as JaxTrainState
+from tf_operator_tpu_torch.metrics import METRICS as PORT_METRICS
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.runtime.shard_server import flatten_state, start_shard_server
+from tf_operator_tpu_torch.testing import restore_faults
 from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
 from tf_operator_tpu_torch.train.restore import (
     GeometryMismatch,
@@ -81,10 +86,35 @@ class Side:
     server: object
     restore: object
     state: object
+    injector: object  # the seeded faults' injector, from a schedule
+    registry: object  # the package's process-wide metrics
 
 
-JAX = Side(JaxCheckpointManager, jax_start_shard_server, jax_restore, jax_state)
-PORT = Side(CheckpointManager, start_shard_server, restore_with_fallback, torch_state)
+def jax_injector(faults):
+    return ChaosCluster(InMemoryCluster(), ChaosSpec(
+        seed=11, restore_faults=tuple(faults))).restore_fault_injector()
+
+
+def port_injector(faults):
+    return restore_faults.RestoreFaultInjector(tuple(
+        restore_faults.ScheduledRestoreFault(**dataclasses.asdict(f)) for f in faults))
+
+
+JAX = Side(JaxCheckpointManager, jax_start_shard_server, jax_restore, jax_state, jax_injector,
+           JAX_METRICS)
+PORT = Side(CheckpointManager, start_shard_server, restore_with_fallback, torch_state,
+            port_injector, PORT_METRICS)
+
+
+def restore_counts(registry) -> dict:
+    """``{(path, cause): n}`` of ``training_restore_total`` in ``registry``."""
+    counts = {}
+    for line in registry.render().splitlines():
+        if line.startswith("training_restore_total{"):
+            labels, value = line[len("training_restore_total{"):].rsplit("} ", 1)
+            path, cause = (part.split("=", 1)[1].strip('"') for part in labels.split('",'))
+            counts[(path, cause.strip('"'))] = int(value)
+    return counts
 
 
 def refuse(op, at=1, count=1, **kw):
@@ -145,31 +175,34 @@ def run_scenario(side: Side, layout: str, faults, tmp_path):
         mgr.save(side.state(step=STEP, scale=3.0), force=True)
     mgr.wait()
     runs, first = [], None
+    before = restore_counts(side.registry)
     try:
         for _ in range(2):
-            chaos = ChaosCluster(InMemoryCluster(), ChaosSpec(seed=11, restore_faults=tuple(faults)))
+            injector = side.injector(faults)
             out = side.restore(side.state(step=0, scale=0.0), mgr, [s.address for s in servers],
                                retries=2, sharded=layout == "sharded",
-                               fault_injector=chaos.restore_fault_injector(),
-                               sleep=lambda _s: None)
+                               fault_injector=injector, sleep=lambda _s: None)
             index = {s.address: i for i, s in enumerate(servers)}
             sources = {index.get(k, k): n for k, n in (out.sources or {}).items()}
-            runs.append(((out.path, out.cause, out.step), list(chaos.fault_log), sources))
+            runs.append(((out.path, out.cause, out.step), list(injector.fault_log), sources))
             first = first or out.state
     finally:
         for s in servers:
             s.stop()
         mgr.close()
-    return runs, first
+    after = restore_counts(side.registry)
+    counted = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    return runs, first, counted
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_seeded_scenario_matches_the_jax_package(name, tmp_path):
     layout, faults, outcome, w = SCENARIOS[name]
-    jax_runs, _ = run_scenario(JAX, layout, faults, tmp_path / "jax")
-    port_runs, state = run_scenario(PORT, layout, faults, tmp_path / "port")
+    jax_runs, _, jax_counted = run_scenario(JAX, layout, faults, tmp_path / "jax")
+    port_runs, state, port_counted = run_scenario(PORT, layout, faults, tmp_path / "port")
     assert jax_runs[0][0] == outcome
     assert port_runs[0] == jax_runs[0]  # outcome, fault log, sources
+    assert port_counted == jax_counted == {outcome[:2]: 2}  # training_restore_total
     assert port_runs[1] == port_runs[0]  # replays byte-identically
     if faults and name != "delta-fault-inert":
         assert port_runs[0][1]

@@ -18,6 +18,22 @@ template, and the container command runs the per-node launcher
 card. A JAXJob gets ``numSlices = nodes``, so that each of its gangs is
 one node; a PyTorchJob gets a Master and ``nodes - 1`` Workers, one gang
 for the job, and its mesh in the template's ``JAX_MESH_SPEC``.
+
+**Slice-local worlds.** A JAXJob whose template sets
+``JAX_SLICE_LOCAL_WORLD=1`` keeps it (template values pass through): each
+node then forms a world of its own G ranks (``runtime/gpu_init.py``), an
+independent replica with its own ``slice-<i>/`` checkpoint stream, and the
+operator restarts a failed node's slice alone. Such a job declares the
+mesh of one slice, ``mesh={"fsdp": G}``: a slice-local world has no
+``slice`` axis, and on the card a declared mesh larger than the world is
+refused.
+
+**Admission.** The operator's gang admission counts the template's
+``nvidia.com/gpu`` ask under the generation the capacity flag names:
+``--enable-gang-admission --capacity nvidia.com/gpu@h100=N`` admits such
+jobs while their GPUs fit in N, a whole job at a time, or one node's gang
+at a time with ``--admission-slice-granularity``
+(``tests/test_torch_slice_restart.py`` pins both).
 """
 
 from __future__ import annotations

@@ -92,7 +92,12 @@ class Topology:
 
 def topology_from_env(env: Optional[Dict[str, str]] = None) -> Topology:
     """Parse the injected JAXJob env; absent vars mean single-process local
-    mode. The same parse as the JAX package's, remap included."""
+    mode. The same parse as the JAX package's, remap included, when no
+    per-node launcher set LOCAL_WORLD_SIZE. Under the launcher a node runs
+    G processes, one a card, so a slice-local world holds G ranks a host:
+    the remap gives it ``len(hostnames) * G`` processes, and this process
+    the id ``worker_id * G + LOCAL_RANK``. The global JAX_NUM_PROCESSES/
+    JAX_PROCESS_ID that the launcher writes are not read in that case."""
     env = os.environ if env is None else env
 
     def _int(key: str, default: int) -> int:
@@ -127,7 +132,8 @@ def topology_from_env(env: Optional[Dict[str, str]] = None) -> Topology:
     if slice_world:
         # Per-slice world: TPU_WORKER_HOSTNAMES lists exactly the slice's
         # hosts in rank order, so the slice coordinator is its first entry
-        # and the in-slice process id is the worker ordinal. The port is
+        # and the in-slice process id is the worker ordinal (times G, plus
+        # the local rank, under the launcher). The port is
         # offset by the slice index, so that slice coordinators sharing one
         # dev host do not contend for one port.
         slice_index = _int(ENV_SLICE_INDEX, 0)
@@ -138,6 +144,10 @@ def topology_from_env(env: Optional[Dict[str, str]] = None) -> Topology:
         coordinator = f"{hostnames[0]}:{port}"
         num_processes = len(hostnames)
         process_id = worker_id
+        if env.get(ENV_LOCAL_WORLD_SIZE):
+            per_node = _int(ENV_LOCAL_WORLD_SIZE, 1)
+            num_processes *= per_node
+            process_id = worker_id * per_node + _int(ENV_LOCAL_RANK, 0)
     return Topology(
         coordinator_address=coordinator,
         num_processes=num_processes,

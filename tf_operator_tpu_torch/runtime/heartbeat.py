@@ -50,6 +50,11 @@ ENV_PEER_RESTORE_ADDRS = "TPU_PEER_RESTORE_ADDRS"
 ENV_SHARDED_RESTORE = "TPU_SHARDED_RESTORE"
 ENV_WARM_START = "TPU_WARM_START"
 ENV_DELTA_PERSIST = "TPU_DELTA_PERSIST"
+# Not the operator's: the port local rank l's shard server binds, which the
+# per-node launcher (runtime/launch.py) sets to the pod's base port plus l,
+# so that the one address the pod publishes (local rank 0's) locates every
+# rank's server.
+ENV_SHARD_SERVER_PORT = "TPU_SHARD_SERVER_PORT"
 ANNOTATION_HEARTBEAT_STEP = "tpu.kubeflow.org/progress-step"
 ANNOTATION_HEARTBEAT_TPS = "tpu.kubeflow.org/tokens-per-sec"
 ANNOTATION_HEARTBEAT_CKPT = "tpu.kubeflow.org/checkpoint-step"

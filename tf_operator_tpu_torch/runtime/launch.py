@@ -14,6 +14,11 @@ COMMAND G times, child l with:
 - ``LOCAL_RANK`` = l and ``LOCAL_WORLD_SIZE`` = G (``gpu_init`` sets card l);
 - the heartbeat env (``TPU_HEARTBEAT_*``) on local rank 0 only: a pod has
   one Lease and one beat file, and G publishers would overwrite each other;
+- with the operator's ``TPU_SHARD_SERVER`` on, ``TPU_SHARD_SERVER_PORT`` =
+  P + l, where P starts a block of G ports free on the loopback when the
+  launcher starts: each rank serves its own shards of a peer restore on
+  its port, and the one address the pod publishes, local rank 0's, locates
+  them all (``runtime/shard_server.local_peer_addresses``);
 
 and every other variable as the pod has it: the coordinator address (pod
 0's, where global rank 0, its local rank 0, serves the rendezvous),
@@ -22,9 +27,11 @@ and every other variable as the pod has it: the coordinator address (pod
 
 G defaults to the cards visible (``torch.cuda.device_count()``) and is
 refused above them, and when there is none: no rank falls back to the
-CPU. A command that asks for the CPU (``--device cpu``) must give G. A
-slice-local world (``JAX_SLICE_LOCAL_WORLD``) over G > 1 cards is refused:
-``gpu_init``'s remap counts the slice's hosts, not its cards.
+CPU. A command that asks for the CPU (``--device cpu``) must give G. Under a
+slice-local world (``JAX_SLICE_LOCAL_WORLD``) ``gpu_init`` reads the slice's
+world from the hosts and these local ranks, not from the global
+``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID`` written here: node w of a slice of
+N nodes holds its ranks w·G + l of N·G.
 
 The children's output (stdout and stderr) reaches the launcher's stdout a
 whole line at a time, so that the G ranks' lines do not interleave in the
@@ -34,6 +41,10 @@ exits with that child's code (128 + the signal for a child killed by one,
 as a shell reports it), so that the operator's exit-code policy sees 137
 and 143 as retryable and any other code as it is. SIGTERM or SIGINT to the
 launcher goes on to every child. It exits 0 only when every child did.
+The children die with the launcher (Linux's parent-death signal): a
+SIGKILL of the launcher alone, which no handler sees, must not leave
+orphans that hold the cards, the ports and the slice's checkpoint
+stream while the operator starts the pod again.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from __future__ import annotations
 import argparse
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -54,10 +66,8 @@ from .gpu_init import (
     ENV_LOCAL_WORLD_SIZE,
     ENV_MASTER_ADDR,
     ENV_NUM_PROCESSES,
-    ENV_NUM_SLICES,
     ENV_PROCESS_ID,
     ENV_RANK,
-    ENV_SLICE_LOCAL_WORLD,
     ENV_WORLD_SIZE,
 )
 
@@ -68,9 +78,11 @@ GRACE_SECONDS = 10.0  # after a child fails, the others' time to exit on SIGTERM
 POLL_SECONDS = 0.05
 
 
-def rank_env(env: Mapping[str, str], local_rank: int, nproc: int) -> Dict[str, str]:
+def rank_env(env: Mapping[str, str], local_rank: int, nproc: int,
+             shard_server_port: Optional[int] = None) -> Dict[str, str]:
     """The env of child ``local_rank`` of ``nproc`` on a node whose pod has
-    ``env``."""
+    ``env``; ``shard_server_port`` is the base of the node's block of shard
+    server ports, when the pod serves shards."""
     out = dict(env)
     jax = bool(env.get(ENV_COORDINATOR_ADDRESS))
     c10d = all(env.get(k) for k in (ENV_MASTER_ADDR, ENV_WORLD_SIZE, ENV_RANK))
@@ -78,12 +90,6 @@ def rank_env(env: Mapping[str, str], local_rank: int, nproc: int) -> Dict[str, s
         raise ValueError(
             f"the pod's env has neither the JAXJob contract ({ENV_COORDINATOR_ADDRESS}) nor "
             f"the c10d one ({ENV_MASTER_ADDR}, {ENV_WORLD_SIZE}, {ENV_RANK})")
-    if (nproc > 1 and str(env.get(ENV_SLICE_LOCAL_WORLD, "")).lower() in _TRUTHY
-            and int(env.get(ENV_NUM_SLICES, "1")) > 1):
-        raise ValueError(
-            f"{ENV_SLICE_LOCAL_WORLD} over {nproc} cards a node: gpu_init's slice-local "
-            "remap counts the slice's hosts, not its cards; not ported yet (ROADMAP Queue 1 "
-            "item 4a, slice-local worlds through the launcher)")
     if jax:
         out[ENV_NUM_PROCESSES] = str(int(env.get(ENV_NUM_PROCESSES, "1")) * nproc)
         out[ENV_PROCESS_ID] = str(int(env.get(ENV_PROCESS_ID, "0")) * nproc + local_rank)
@@ -92,6 +98,8 @@ def rank_env(env: Mapping[str, str], local_rank: int, nproc: int) -> Dict[str, s
         out[ENV_RANK] = str(int(env[ENV_RANK]) * nproc + local_rank)
     out[ENV_LOCAL_RANK] = str(local_rank)
     out[ENV_LOCAL_WORLD_SIZE] = str(nproc)
+    if shard_server_port is not None:
+        out[heartbeat.ENV_SHARD_SERVER_PORT] = str(shard_server_port + local_rank)
     if local_rank:
         for key in HEARTBEAT_ENV:
             out.pop(key, None)
@@ -124,9 +132,46 @@ def processes_per_node(nproc: Optional[int], command: List[str]) -> int:
     return nproc
 
 
+def free_port_block(n: int, host: str = "127.0.0.1", attempts: int = 64) -> int:
+    """The first of ``n`` consecutive ports that bind on ``host`` now (the
+    shard servers' host). Another process may still take one before its
+    rank's server binds it: that rank then serves nothing
+    (``llama_train.recover``), and a peer restoring from it falls to
+    storage."""
+    for _ in range(attempts):
+        socks = []
+        try:
+            first = socket.socket()
+            socks.append(first)
+            first.bind((host, 0))
+            base = first.getsockname()[1]
+            for port in range(base + 1, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind((host, port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise OSError(f"no block of {n} free ports on {host} in {attempts} tries")
+
+
 def exit_code(returncode: int) -> int:
     """A child's code as a shell reports it: 128 + the signal that killed it."""
     return 128 - returncode if returncode < 0 else returncode
+
+
+def _die_with_parent() -> None:
+    """In a child, before it runs: SIGKILL it when the launcher dies
+    (``prctl(PR_SET_PDEATHSIG)``; nothing where libc has no prctl)."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    except (AttributeError, OSError):
+        pass
 
 
 def _relay(pipe, fd: int, lock: threading.Lock) -> None:
@@ -143,9 +188,12 @@ def launch(command: List[str], nproc: int, env: Optional[Mapping[str, str]] = No
     of ``env``, by default this process's) until all have exited; the
     launcher's exit code."""
     env = os.environ if env is None else env
-    envs = [rank_env(env, local, nproc) for local in range(nproc)]
+    serving = str(env.get(heartbeat.ENV_SHARD_SERVER, "")).lower() in _TRUTHY
+    base = free_port_block(nproc) if serving else None
+    envs = [rank_env(env, local, nproc, base) for local in range(nproc)]
     children = [subprocess.Popen(command, env=e, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT) for e in envs]
+                                 stderr=subprocess.STDOUT, preexec_fn=_die_with_parent)
+                for e in envs]
     lock, fd = threading.Lock(), sys.stdout.fileno()
     relays = [threading.Thread(target=_relay, args=(c.stdout, fd, lock), daemon=True)
               for c in children]

@@ -23,6 +23,21 @@ framing are the JAX module's, byte for byte:
   survivor claims under the slice-scoped partition, a planning hint for
   scatter-gather clients, never an ACL (``/v1/shard`` serves any name).
 
+The port adds one key to the meta of a snapshot that holds one rank's
+shards of a sharded state: ``shard_of``, the rank, world and mesh of the
+process that holds them (``train/checkpoint.shard_identity``). A whole
+state's meta has none, as the JAX module's. A restoring rank takes shards
+only from a peer whose ``shard_of`` is its own (``train/restore.py``).
+
+**One address a pod, G servers.** The operator publishes one address a
+pod, the one its heartbeat (local rank 0's) carries. Under the per-node
+launcher each local rank serves its own shards on the port the launcher
+gave it (``TPU_SHARD_SERVER_PORT``), the pod's base port plus its local
+rank, so local rank l of a restoring pod finds the shards of local rank l
+of a survivor at the survivor's published port plus l
+(:func:`local_peer_addresses`). The servers bind the loopback by
+default, as the JAX module's do.
+
 **Names.** :func:`flatten_state` names every tensor of a ``TrainState``
 by a ``state_dict``-style key (``step``, ``model/<parameter>``,
 ``opt/count``, ``opt/mu/<parameter>``, ``opt/nu/<parameter>``), with the
@@ -198,6 +213,7 @@ class _SnapshotView:
         flat = snapshot.tree
         self.payloads: Dict[str, bytes] = {name: encode_shard(t) for name, t in flat.items()}
         self.checksums = {name: shard_checksum(data) for name, data in self.payloads.items()}
+        shard_of = getattr(snapshot, "shard_of", None)
         self.meta = {
             "step": self.step,
             "model_meta": self.model_meta,
@@ -211,6 +227,8 @@ class _SnapshotView:
                 for name, t in flat.items()
             },
         }
+        if shard_of is not None:
+            self.meta["shard_of"] = shard_of
 
 
 class SnapshotShardServer:
@@ -233,6 +251,7 @@ class SnapshotShardServer:
         self._owned = owned
         self._lock = threading.Lock()
         self._view: Optional[_SnapshotView] = None
+        self._warmers: list = []
         self._advertise_host = advertise_host
         server = self
 
@@ -277,8 +296,12 @@ class SnapshotShardServer:
         return self
 
     def stop(self) -> None:
+        """Stop serving, and wait for a view being built: a thread still
+        encoding tensors when the interpreter exits aborts the process."""
         self._httpd.shutdown()
         self._httpd.server_close()
+        for thread in self._warmers:
+            thread.join()
 
     @property
     def port(self) -> int:
@@ -293,9 +316,10 @@ class SnapshotShardServer:
         """Build the view of the current snapshot off the request path
         (wired to the durability listener), so that the first restoring
         peer does not pay the encode and hash inline."""
-        threading.Thread(
-            target=self._current_view, name="shard-server-warm", daemon=True
-        ).start()
+        thread = threading.Thread(
+            target=self._current_view, name="shard-server-warm", daemon=True)
+        self._warmers = [t for t in self._warmers if t.is_alive()] + [thread]
+        thread.start()
 
     # ------------------------------------------------------------ serving
     def _current_view(self) -> Optional[_SnapshotView]:
@@ -400,15 +424,28 @@ class SnapshotShardServer:
         request._send(404, json.dumps({"error": "unknown-path"}).encode())
 
 
+def local_peer_addresses(addresses, local_rank: int):
+    """Where local rank ``local_rank`` of a pod finds its own shards: each
+    survivor pod's published ``host:port`` (its local rank 0's server)
+    with ``local_rank`` added to the port (module doc)."""
+    out = []
+    for address in addresses:
+        host, _, port = address.rpartition(":")
+        out.append(f"{host}:{int(port) + local_rank}")
+    return out
+
+
 def start_shard_server(checkpoint_manager, host: str = "127.0.0.1",
                        port: int = 0, slice_index: Optional[int] = None,
                        num_slices: Optional[int] = None) -> SnapshotShardServer:
     """Start a shard server over a CheckpointManager's host snapshot and
     return it (``.address`` is the rider payload for record_peer_address).
-    Each durable save warms the view cache. With a slice topology the
-    manifest's owned set is what the manager's own checkpoint stream holds
-    durable (``persisted_shard_names``), falling back to the name stride
-    (partition_shard_names); either way a planning hint, never an ACL."""
+    Each durable save warms the view cache, and a sharded save keeps this
+    rank's shards on the host to serve (``serve_local_shards``). With a
+    slice topology the manifest's owned set is what the manager's own
+    checkpoint stream holds durable (``persisted_shard_names``), falling
+    back to the name stride (partition_shard_names); either way a planning
+    hint, never an ACL."""
     owned = None
     if slice_index is not None and num_slices is not None and num_slices > 1:
         idx, n = int(slice_index), int(num_slices)
@@ -428,6 +465,8 @@ def start_shard_server(checkpoint_manager, host: str = "127.0.0.1",
 
     server = SnapshotShardServer(checkpoint_manager.host_snapshot,
                                  host=host, port=port, owned=owned).start()
+    if hasattr(checkpoint_manager, "serve_local_shards"):
+        checkpoint_manager.serve_local_shards = True
     try:
         checkpoint_manager.add_durability_listener(lambda _step: server.warm())
     except AttributeError:

@@ -34,12 +34,19 @@ orbax, so its layout differs:
   ``torch.distributed.checkpoint.async_save`` into ``<dir>/dcp/<step>/``,
   is durable once the save's future completes and DCP's ``.metadata``
   exists, and is restored in place with ``torch.distributed.checkpoint.
-  load``. ``host_snapshot()`` stays None and restores go to storage. At
-  most one DCP save is in flight: each ``async_save`` runs its planning,
-  writes and metadata gather on a thread of its own over the manager's
-  gloo group, and two such threads would let the ranks run their
-  collectives in different orders (a hang). A save waits for the one
-  before it, as orbax's manager does.
+  load``. Its storage restores go to DCP. At most one DCP save is in
+  flight: each ``async_save`` runs its planning, writes and metadata
+  gather on a thread of its own over the manager's gloo group, and two
+  such threads would let the ranks run their collectives in different
+  orders (a hang). A save waits for the one before it, as orbax's manager
+  does. DCP writes ``.metadata`` on the coordinator after every rank's
+  data is written and before any rank's future completes (its final
+  all-reduce), so the step a rank publishes as durable is one that every
+  rank of its world can restore. ``host_snapshot()`` stays None unless a
+  shard server serves this manager (``serve_local_shards``): then a
+  sharded save also keeps a host snapshot of this rank's own shards,
+  tagged with the rank that holds them (:func:`shard_identity`), for a
+  peer restore by the same rank of another replica.
 
 **Delta persists** (``delta_persist=True``): between durable steps most
 shards may be byte-identical, so the persist writes only payloads whose
@@ -54,9 +61,13 @@ hash mismatch (``delta-checksum-mismatch``) degrades the WHOLE state to
 the newest full manifest that verifies, with the cause kept on
 ``last_delta_degradation``.
 
-The JAX module's in-process Prometheus calls (``observe_checkpoint_
-persist*``, best-effort there) are not ported; ``last_persist_info`` and
-``last_persist_seconds`` carry the same numbers.
+**Telemetry.** A manifest persist observes its bytes, skipped shards and
+chain depth, and every durability edge its seconds, into the port's
+registry (``tf_operator_tpu_torch/metrics.py``) at the JAX module's
+points, best-effort: a telemetry error never gates durability.
+``last_persist_info`` carries the newest durable persist's numbers and its
+``seconds`` split into ``split`` (:data:`PERSIST_PARTS`), which sums to
+them.
 """
 
 from __future__ import annotations
@@ -77,9 +88,22 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from ..metrics import METRICS
 from ..runtime.shard_server import encode_parts, flatten_state
 
 log = logging.getLogger(__name__)
+
+# The parts of a persist's seconds (save() to the durability edge), in
+# ``last_persist_info["split"]``. A manifest persist: the snapshot's
+# device-to-host copies issued in save() (host time: the pinned buffers
+# and the enqueue) and, in the worker, waited for; the wait behind earlier
+# persists; encoding (the .npy header and the bytes' view); sha256; the
+# payload and manifest writes and renames; the retention GC. A DCP save:
+# the wait for the previous save, async_save's own call (its CPU staging
+# and planning), the wait behind earlier persists, its future, and the
+# .metadata check and retention. Each persist has the parts of its kind.
+PERSIST_PARTS = ("d2h_issue", "wait_previous", "dcp_stage", "queue", "d2h_wait", "encode",
+                 "sha256", "write", "gc", "dcp_future", "finalize")
 
 
 def geometry_mismatch(saved: Optional[dict], current: Optional[dict]) -> dict:
@@ -101,18 +125,29 @@ class HostSnapshot:
     """One step's host-resident copy of the state: the peer-restore shard
     source. ``tree`` is ``{name: host tensor}`` (``flatten_state``'s names),
     immutable once published: the shard server may be serving it. ``ready``
-    is the CUDA event after the device-to-host copies, None for a copy
-    made on the host; nothing may read ``tree`` before :meth:`wait`."""
+    is the CUDA event after the device-to-host copies (``started`` the one
+    before them), None for a copy made on the host; nothing may read
+    ``tree`` before :meth:`wait`. ``shard_of`` is :func:`shard_identity` of
+    the state: None for a whole state."""
 
     step: int
     tree: Dict[str, torch.Tensor]
     model_meta: Optional[dict] = None
     ready: Optional[Any] = None
+    started: Optional[Any] = None
+    shard_of: Optional[dict] = None
 
     def wait(self) -> "HostSnapshot":
         if self.ready is not None:
             self.ready.synchronize()
         return self
+
+    def copy_seconds(self) -> Optional[float]:
+        """The device time of the copies (after :meth:`wait`), None on the
+        host."""
+        if self.ready is None:
+            return None
+        return self.started.elapsed_time(self.ready) / 1e3
 
 
 def is_sharded(state) -> bool:
@@ -124,7 +159,21 @@ def is_sharded(state) -> bool:
         for p in state.model.parameters())
 
 
-def take_snapshot(state, step: int, model_meta: Optional[dict] = None) -> HostSnapshot:
+def shard_identity(state) -> Optional[dict]:
+    """Which piece of the state this process holds: None for a whole
+    state, else ``{"rank", "world", "mesh"}``, its rank in its world and
+    the mesh of its DTensors (``{axis: size}``). Two processes hold the
+    same shards of equal states only when these are equal."""
+    if not is_sharded(state):
+        return None
+    mesh = next((p.device_mesh for p in state.model.parameters() if isinstance(p, DTensor)),
+                None)
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else {}
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(), "mesh": axes}
+
+
+def take_snapshot(state, step: int, model_meta: Optional[dict] = None,
+                  shard_of: Optional[dict] = None) -> HostSnapshot:
     """A finished, private host copy of a whole state.
 
     AdamW updates the parameters and moments IN PLACE (``train_step.py``),
@@ -151,23 +200,27 @@ def take_snapshot(state, step: int, model_meta: Optional[dict] = None) -> HostSn
       process pay for pinning (about 2.4 GB for llama-400m).
     """
     tree: Dict[str, torch.Tensor] = {}
-    streams = {}
+    flat = flatten_state(state)
+    devices = {t.device for t in flat.values() if t.device.type == "cuda"}
+    if len(devices) > 1:
+        raise ValueError(f"state spans {sorted(map(str, devices))}; one device per process")
+    started = ready = None
+    if devices:
+        stream = torch.cuda.current_stream(next(iter(devices)))
+        started, ready = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        started.record(stream)
     with torch.no_grad():
-        for name, t in flatten_state(state).items():
+        for name, t in flat.items():
             if t.device.type == "cuda":
                 host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 host.copy_(t, non_blocking=True)
-                streams[t.device] = torch.cuda.current_stream(t.device)
             else:
                 host = t.clone()
             tree[name] = host
-    ready = None
-    if streams:
-        if len(streams) > 1:
-            raise ValueError(f"state spans {sorted(map(str, streams))}; one device per process")
-        ready = torch.cuda.Event()
-        ready.record(next(iter(streams.values())))
-    return HostSnapshot(step=step, tree=tree, model_meta=model_meta, ready=ready)
+    if devices:
+        ready.record(stream)
+    return HostSnapshot(step=step, tree=tree, model_meta=model_meta, ready=ready,
+                        started=started, shard_of=shard_of)
 
 
 def _dcp_state_dict(state) -> dict:
@@ -243,6 +296,9 @@ class CheckpointManager:
         self._closed = False
         self._cpu_group = None
         self._dcp_future = None  # the newest DCP save's (see the module doc)
+        # Set by runtime/shard_server.start_shard_server: a sharded save
+        # also keeps a host snapshot of this rank's shards (module doc).
+        self.serve_local_shards = False
         # Test seam: called in the persist worker between the snapshot and
         # the storage write; a test blocks or raises here to hold a step
         # non-durable deterministically.
@@ -254,9 +310,11 @@ class CheckpointManager:
         self._delta_shards_dir = os.path.join(self._delta_dir, "shards")
         self._dcp_dir = os.path.join(self.directory, "dcp")
         self._delta_persist_count = 0
-        # Stats of the newest manifest persist this process finalized:
-        # {"kind", "step", "chain_depth", "bytes_written", "shards_written",
-        # "shards_skipped"}.
+        # Stats of the newest persist this process finalized: a manifest
+        # persist's {"kind", "step", "chain_depth", "bytes_written",
+        # "shards_written", "shards_skipped"}, a DCP save's {"kind": "dcp",
+        # "step"}; both with "seconds", its "split" (PERSIST_PARTS) and,
+        # for a snapshot copied from the card, "d2h_device_seconds".
         self.last_persist_info: Optional[dict] = None
         # Seconds from save() to the durability edge of the newest durable
         # step.
@@ -358,11 +416,16 @@ class CheckpointManager:
                 f.write(part)
         os.replace(tmp, path)
 
-    def _persist_delta(self, step: int, tree: Dict[str, torch.Tensor]) -> None:
+    def _persist_delta(self, step: int, tree: Dict[str, torch.Tensor],
+                       parts: Dict[str, float]) -> None:
         """One manifest persist, on the worker thread (or inline in sync
         mode). Ordering IS the durability contract: every payload the
         manifest references is renamed into place before the manifest
-        itself is. The caller fires _mark_durable after this returns."""
+        itself is. The caller fires _mark_durable after this returns.
+        Adds its encode, sha256, write and gc seconds to ``parts``."""
+        clock = time.perf_counter
+        encode = digest_s = write = 0.0
+        t = clock()
         os.makedirs(self._delta_shards_dir, exist_ok=True)
         prev_step = self._delta_latest_step()
         prev = (self._read_delta_manifest(prev_step)
@@ -383,13 +446,19 @@ class CheckpointManager:
                            for n, e in prev.get("shards", {}).items()})
         entries: Dict[str, dict] = {}
         written = skipped = bytes_written = 0
+        write += clock() - t  # the manifest reads above
         for name in sorted(tree):
             # Header and data are hashed and written in turn: no joined
             # second copy of a multi-GB state.
+            t = clock()
             header, data = encode_parts(tree[name])
+            t1 = clock()
             digest = hashlib.sha256(header)
             digest.update(data)
             checksum = digest.hexdigest()
+            t2 = clock()
+            encode += t1 - t
+            digest_s += t2 - t1
             size = len(header) + data.nbytes
             entries[name] = {"checksum": checksum, "bytes": size}
             if prev_sums.get(name) == checksum:
@@ -400,8 +469,10 @@ class CheckpointManager:
             path = os.path.join(self._delta_shards_dir, f"{checksum}.npy")
             if full or not os.path.exists(path):
                 self._write_file_atomic(path, header, data)
+            write += clock() - t2
             written += 1
             bytes_written += size
+        t = clock()
         chain_depth = 0 if full else int(prev.get("chain_depth", 0)) + 1
         manifest = {
             "step": int(step),
@@ -412,6 +483,7 @@ class CheckpointManager:
         }
         manifest_bytes = json.dumps(manifest, sort_keys=True).encode()
         self._write_file_atomic(self._delta_manifest_path(step), manifest_bytes)
+        t1 = clock()
         self._delta_gc()
         self.last_persist_info = {
             "kind": manifest["kind"],
@@ -421,6 +493,13 @@ class CheckpointManager:
             "shards_written": written,
             "shards_skipped": skipped,
         }
+        try:
+            METRICS.observe_checkpoint_persist_bytes(
+                manifest["kind"], bytes_written + len(manifest_bytes), skipped)
+            METRICS.set_delta_chain_depth(chain_depth)
+        except Exception:  # noqa: BLE001 — telemetry never gates durability
+            pass
+        parts.update(encode=encode, sha256=digest_s, write=write + t1 - t, gc=clock() - t1)
 
     def _delta_gc(self) -> None:
         """Retention: the newest max_to_keep manifests, PLUS the newest
@@ -469,7 +548,7 @@ class CheckpointManager:
         byte of the state changes — the caller owns degradation to an
         older full manifest, never a partial mix."""
         from ..runtime.shard_server import shard_checksum
-        from .restore import _assemble
+        from .restore import _assemble, charged
 
         manifest = self._read_delta_manifest(step)
         if not manifest or "shards" not in manifest:
@@ -498,7 +577,9 @@ class CheckpointManager:
                     f"from the store ({err})") from err
             if kind == "delta-corrupt-shard":
                 payload = payload[: max(0, len(payload) // 2)]
-            if shard_checksum(payload) != entry["checksum"]:
+            with charged("sha256"):
+                good = shard_checksum(payload) == entry["checksum"]
+            if not good:
                 raise _DeltaBroken(
                     "delta-checksum-mismatch",
                     f"shard {name} failed sha256 verification against "
@@ -543,13 +624,17 @@ class CheckpointManager:
         if self._dcp_future is not None:
             concurrent.futures.wait([self._dcp_future])
 
-    def _finalize_dcp(self, step: int, future) -> None:
+    def _finalize_dcp(self, step: int, future, parts: Dict[str, float]) -> None:
+        t = time.perf_counter()
         future.result()
+        t1 = time.perf_counter()
         if not os.path.exists(os.path.join(self._dcp_path(step), ".metadata")):
             raise OSError(f"DCP save of step {step} finished without its .metadata")
         if dist.get_rank() == 0:
             for old in self._dcp_steps()[:-self._max_to_keep]:
                 shutil.rmtree(self._dcp_path(old), ignore_errors=True)
+        parts.update(dcp_future=t1 - t, finalize=time.perf_counter() - t1)
+        self.last_persist_info = {"kind": "dcp", "step": int(step)}
 
     # ------------------------------------------------------ durability
     def add_durability_listener(self, cb: Callable[[int], None]) -> None:
@@ -566,11 +651,21 @@ class CheckpointManager:
         with self._durable_lock:
             return self._last_durable
 
-    def _mark_durable(self, step: int, persist_seconds: float) -> None:
+    def _mark_durable(self, step: int, persist_seconds: float, parts: Dict[str, float],
+                      copy_seconds: Optional[float] = None) -> None:
+        info = self.last_persist_info
+        if info is not None and info.get("step") == step:
+            info.update(seconds=persist_seconds, split=dict(parts))
+            if copy_seconds is not None:
+                info["d2h_device_seconds"] = copy_seconds
         with self._durable_lock:
             if self._last_durable is None or step > self._last_durable:
                 self._last_durable = step
             self.last_persist_seconds = persist_seconds
+        try:
+            METRICS.observe_checkpoint_persist(persist_seconds)
+        except Exception:  # noqa: BLE001 — telemetry never gates durability
+            pass
         for cb in list(self._listeners):
             try:
                 cb(step)
@@ -578,13 +673,20 @@ class CheckpointManager:
                 # wedge the persist worker (later steps still need it).
                 log.exception("checkpoint durability listener failed")
 
-    def _persist(self, kind: str, step: int, payload) -> None:
+    def _persist(self, kind: str, step: int, payload,
+                 parts: Dict[str, float]) -> Optional[float]:
+        """Write (or finalize) one save; its parts' seconds go into
+        ``parts``. Returns the device seconds of a snapshot's copies."""
         if kind == "delta":
             # Host-snapshot path: the bytes are read only after the
             # snapshot's copies have finished.
-            self._persist_delta(step, payload.wait().tree)
-        else:
-            self._finalize_dcp(step, payload)
+            t = time.perf_counter()
+            payload.wait()
+            parts["d2h_wait"] = time.perf_counter() - t
+            self._persist_delta(step, payload.tree, parts)
+            return payload.copy_seconds()
+        self._finalize_dcp(step, payload, parts)
+        return None
 
     def _persist_loop(self) -> None:
         while True:
@@ -592,11 +694,12 @@ class CheckpointManager:
             try:
                 if item[0] == "stop":
                     return
-                kind, step, payload, t0 = item
+                kind, step, payload, t0, parts, enqueued = item
                 try:
                     if self._persist_gate is not None:
                         self._persist_gate(step)
-                    self._persist(kind, step, payload)
+                    parts["queue"] = time.perf_counter() - enqueued
+                    copy_seconds = self._persist(kind, step, payload, parts)
                 except Exception:  # noqa: BLE001
                     self._persist_errors += 1
                     log.exception(
@@ -606,7 +709,7 @@ class CheckpointManager:
                     continue
                 finally:
                     del payload, item  # the snapshot's buffers may go back
-                self._mark_durable(step, time.perf_counter() - t0)
+                self._mark_durable(step, time.perf_counter() - t0, parts, copy_seconds)
             finally:
                 self._persist_queue.task_done()
 
@@ -620,8 +723,9 @@ class CheckpointManager:
     def host_snapshot(self) -> Optional[HostSnapshot]:
         """The newest host-resident snapshot (the peer-restore shard
         source), its copies finished, or None when no whole-state save
-        happened yet. May be ahead of last_durable_step(): a snapshot is
-        servable the moment it exists."""
+        (or, with ``serve_local_shards``, no sharded one) happened yet.
+        May be ahead of last_durable_step(): a snapshot is servable the
+        moment it exists."""
         snapshot = self._snapshot
         return snapshot.wait() if snapshot is not None else None
 
@@ -640,30 +744,41 @@ class CheckpointManager:
         # Save-only runs reusing a directory must not mix geometries under
         # one sidecar: validate against any existing record before writing.
         self._validate_meta()
-        t0 = time.perf_counter()
+        clock = time.perf_counter
+        t0 = clock()
+        parts: Dict[str, float] = {}
         if is_sharded(state):
             import torch.distributed.checkpoint as dcp
 
+            if self.serve_local_shards:
+                self._snapshot = take_snapshot(state, step, self._model_meta,
+                                               shard_identity(state))
+            t1 = clock()
             # async_save stages a CPU copy of every tensor before it
             # returns, so the next step's in-place update cannot reach the
             # bytes being written; the worker turns the future's end into
             # the durability edge. The previous save's collectives end
             # before this one's start (module doc).
             self._wait_dcp()
+            t2 = clock()
             kind, payload = "finalize", dcp.async_save(
                 _dcp_state_dict(state), checkpoint_id=self._dcp_path(step),
                 process_group=self._dcp_group())
             self._dcp_future = payload
+            issued = clock()
+            parts.update(d2h_issue=t1 - t0, wait_previous=t2 - t1, dcp_stage=issued - t2)
         else:
             kind = "delta"
             payload = self._snapshot = take_snapshot(state, step, self._model_meta)
+            issued = clock()
+            parts["d2h_issue"] = issued - t0
         self._last_snapshot_step = step
         if self.async_persist:
             self._ensure_worker()
-            self._persist_queue.put((kind, step, payload, t0))
+            self._persist_queue.put((kind, step, payload, t0, parts, issued))
         else:
-            self._persist(kind, step, payload)
-            self._mark_durable(step, time.perf_counter() - t0)
+            copy_seconds = self._persist(kind, step, payload, parts)
+            self._mark_durable(step, clock() - t0, parts, copy_seconds)
         self._write_meta()
         return True
 
@@ -683,12 +798,15 @@ class CheckpointManager:
         a broken resolution degrades the whole state to the newest full
         manifest that verifies, then to DCP, with the first named cause
         kept on ``last_delta_degradation``."""
+        from .restore import charged
+
         self.last_delta_degradation = None
         delta_step = self._delta_latest_step()
         dcp_steps = self._dcp_steps()
         dcp_step = dcp_steps[-1] if dcp_steps else None
         if delta_step is not None and (dcp_step is None or delta_step >= dcp_step):
-            self._validate_meta()
+            with charged("geometry"):
+                self._validate_meta()
             try:
                 return self._resolve_delta(state, delta_step), delta_step
             except _DeltaBroken as err:
@@ -711,12 +829,13 @@ class CheckpointManager:
                         "continuing down", s, err.cause)
         if dcp_step is None:
             return state, None
-        self._validate_meta()
+        with charged("geometry"):
+            self._validate_meta()
         import torch.distributed.checkpoint as dcp
 
-        sd = _dcp_state_dict(state)
         self._wait_dcp()
-        with torch.no_grad():
+        with torch.no_grad(), charged("dcp_load"):
+            sd = _dcp_state_dict(state)
             dcp.load(sd, checkpoint_id=self._dcp_path(dcp_step),
                      process_group=self._dcp_group() if dist.is_initialized() else None)
         state.step = int(sd["step"])

@@ -25,11 +25,13 @@ file through the native loader, and reach the card through
 ``DevicePrefetch``. Prints the JAX script's ``[llama] process i/n
 devices=N mesh={...}`` and ``[llama] step N loss X tokens/sec Y (Z/chip)``
 lines, ends on ``[llama] done {...}`` (a JSON object of the losses, the
-window, the kernels' launches and the peak memory), and publishes the step and tokens/s on the heartbeat at the log
-cadence. Each step's loss stays on the device: the host reads it only at
-a log step (the run's first, every ``--log-every``-th and its last), so
-the steps between queue ahead of the card as the JAX script's do, and
-once at the end for the whole list. ``step_profiler`` runs after every
+window, the kernels' launches, the peak memory and, with a checkpoint
+directory, the restore and the last persist with their seconds split and
+the recovery telemetry's text), and publishes the step and tokens/s on
+the heartbeat at the log cadence. Each step's loss stays on the device:
+the host reads it only at a log step (the run's first, every
+``--log-every``-th and its last), so the steps between queue ahead of the
+card as the JAX script's do, and once at the end for the whole list. ``step_profiler`` runs after every
 step: ``TPU_PROFILE_DIR`` traces a window of steps (runtime/profiling.py).
 
 With ``--checkpoint-dir`` (or ``CHECKPOINT_DIR``) the run checkpoints
@@ -61,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..metrics import METRICS
 from ..models import llama
 from ..ops import build
 from ..parallel.mesh import mesh_axes
@@ -69,9 +72,10 @@ from ..runtime import gpu_init
 from ..runtime import heartbeat
 from ..runtime.heartbeat import record_progress
 from ..runtime.profiling import step_profiler
-from .checkpoint import CheckpointManager
+from ..runtime.shard_server import local_peer_addresses, start_shard_server
+from .checkpoint import CheckpointManager, is_sharded
 from .data import DevicePrefetch, SyntheticTokens, TokenFileDataset
-from .restore import RestoreOutcome, restore_with_fallback
+from .restore import RestoreOutcome, WorldGate, checksum_digest, restore_with_fallback
 from .train_step import (
     init_sharded_train_state,
     init_train_state,
@@ -175,7 +179,14 @@ _TRUTHY = ("1", "true", "yes")
 def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
     """The checkpoint manager of ``args.checkpoint_dir``, the restore of
     ``state`` in place through the ladder, and the shard server when the
-    operator asked for one: ``(ckpt, shard_srv, outcome)``."""
+    operator asked for one: ``(ckpt, shard_srv, outcome)``.
+
+    Under the per-node launcher each local rank asks the survivors'
+    servers of its own local rank (``shard_server.local_peer_addresses``)
+    and, with ``TPU_SHARD_SERVER``, serves its own shards on the port the
+    launcher gave it; the pod publishes local rank 0's address. A sharded
+    state restores through the ladder's world vote (``restore.WorldGate``):
+    every rank from its own peer at one step, or every rank from storage."""
     ckpt_dir = args.checkpoint_dir
     if topo.slice_world and topo.num_slices > 1:
         # Slice-local worlds are independent training replicas: each
@@ -191,11 +202,13 @@ def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
     # against a checkpoint that a crash can still erase.
     ckpt.add_durability_listener(heartbeat.record_checkpoint)
     peers = [a for a in os.environ.get(heartbeat.ENV_PEER_RESTORE_ADDRS, "").split(",") if a]
+    local_rank = int(os.environ.get(gpu_init.ENV_LOCAL_RANK, "0") or 0)
     outcome = restore_with_fallback(
-        state, ckpt, peers,
+        state, ckpt, local_peer_addresses(peers, local_rank),
         sharded=os.environ.get(heartbeat.ENV_SHARDED_RESTORE) in _TRUTHY,
         warm_start=os.environ.get(heartbeat.ENV_WARM_START) in _TRUTHY,
         have=delta_persist,
+        commit=WorldGate() if dist.is_initialized() and is_sharded(state) else None,
     )
     heartbeat.record_restore(outcome.path, outcome.cause, outcome.seconds,
                              outcome.bytes_moved)
@@ -204,13 +217,20 @@ def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
               f"({outcome.cause})", flush=True)
     shard_srv = None
     if os.environ.get(heartbeat.ENV_SHARD_SERVER) in _TRUTHY:
-        from ..runtime.shard_server import start_shard_server
-
         sliced = topo.num_slices > 1
-        shard_srv = start_shard_server(
-            ckpt, slice_index=topo.slice_index if sliced else None,
-            num_slices=topo.num_slices if sliced else None)
-        heartbeat.record_peer_address(shard_srv.address)
+        port = int(os.environ.get(heartbeat.ENV_SHARD_SERVER_PORT, "0") or 0)
+        try:
+            shard_srv = start_shard_server(
+                ckpt, port=port, slice_index=topo.slice_index if sliced else None,
+                num_slices=topo.num_slices if sliced else None)
+        except OSError as err:
+            # The launcher found the port free, but another process took it
+            # since. Only the peer path degrades: this rank serves nothing
+            # and publishes nothing, and a restoring peer of its local rank
+            # falls to storage.
+            print(f"[llama] no shard server: port {port}: {err}", flush=True)
+        else:
+            heartbeat.record_peer_address(shard_srv.address)
     return ckpt, shard_srv, outcome
 
 
@@ -285,7 +305,7 @@ def run(args: argparse.Namespace, s: Optional[Setup] = None) -> dict:
     manager, whose host snapshot stays servable."""
     s = s or setup(args)
     try:
-        return _train(args, s)
+        out = _train(args, s)
     finally:
         # Drain the persist queue on EVERY exit path: a completing or
         # failing run must never leave a write in flight.
@@ -296,6 +316,29 @@ def run(args: argparse.Namespace, s: Optional[Setup] = None) -> dict:
         # One last beat: the renewal thread is a daemon, and the final
         # durable step must be published before the process exits.
         heartbeat.flush()
+    # What a process that started this one reads back (the per-node
+    # launcher's children): the losses, the window, the kernels' launches,
+    # the peak memory, the restore and the last persist with their splits,
+    # and the recovery families this process observed.
+    print("[llama] done " + json.dumps(done_summary(s, out)), flush=True)
+    return out
+
+
+def done_summary(s: Setup, out: dict) -> dict:
+    """The ``[llama] done`` object of a finished run."""
+    restore = None
+    if s.restore is not None:
+        r = s.restore
+        restore = {"path": r.path, "cause": r.cause, "step": r.step, "seconds": r.seconds,
+                   "split": r.split, "bytes_moved": r.bytes_moved,
+                   "digest": checksum_digest(r.checksums) if r.checksums else None}
+    return {"process": s.topology.process_id, "losses": out["losses"],
+            "window_steps": out["window_steps"], "window_seconds": out["window_seconds"],
+            "tokens_per_step": out["tokens_per_step"], "launches": out["launches"],
+            "peak_bytes": out["peak_bytes"], "start_step": out["start_step"],
+            "restore": restore,
+            "persist": s.ckpt.last_persist_info if s.ckpt is not None else None,
+            "telemetry": METRICS.render() if s.ckpt is not None else None}
 
 
 def attention_note(config: llama.LlamaConfig, mesh: dict) -> str:
@@ -354,20 +397,13 @@ def _train(args: argparse.Namespace, s: Setup) -> dict:
         if s.ckpt.save(state, force=True):
             save_seconds.append(time.perf_counter() - t_save)
     losses = losses.tolist()
-    # What a process that started this one reads back (the per-node
-    # launcher's children): the losses, the window, the kernels' launches
-    # and the peak memory.
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    print("[llama] done " + json.dumps({
-        "process": s.topology.process_id, "losses": losses, "window_steps": window_steps,
-        "window_seconds": window_seconds, "tokens_per_step": args.batch * args.seq,
-        "launches": {k: n for k, n in build.LAUNCHES.items() if n}, "peak_bytes": peak}),
-        flush=True)
     return {"config": s.config, "losses": losses, "window_steps": window_steps,
             "window_seconds": window_seconds,
             "tokens_per_step": args.batch * args.seq, "device": name, "mesh": mesh,
             "native_loader": getattr(s.dataset, "native", None), "restore": s.restore,
-            "save_seconds": save_seconds, "ckpt": s.ckpt, "start_step": s.state.step}
+            "save_seconds": save_seconds, "ckpt": s.ckpt, "start_step": start,
+            "launches": {k: n for k, n in build.LAUNCHES.items() if n}, "peak_bytes": peak}
 
 
 def main(argv=None) -> int:

@@ -52,7 +52,11 @@ Degradations and their recorded causes:
 - ``no-peers``           — no addresses advertised (peer path not enabled,
                            or every survivor died with the slice)
 - ``peer-unreachable``   — connect refused / per-peer timeout after
-                           retry-with-backoff on every peer
+                           retry-with-backoff on every peer, or a peer
+                           that rotated its snapshot (409) between its
+                           meta and the bundle more times than the
+                           retries (a rank alone asks the meta again
+                           after each rotation; a sharded world does not)
 - ``partial-snapshot``   — a peer answered but holds no servable snapshot
                            (a sharded state, or pre-first-save)
 - ``stale-snapshot``     — the best peer's step is strictly older than
@@ -65,11 +69,32 @@ Degradations and their recorded causes:
 - ``shard-fill-step-mismatch`` — shards needed a storage fill but storage
                            does not hold the plan step; the whole state
                            degrades to storage (torn-state refusal)
+- ``peer-shard-mismatch`` — a peer answered but serves another rank's
+                           shards (its ``shard_of`` is not this rank's,
+                           ``checkpoint.shard_identity``); never restored
+- ``peer-step-mismatch`` — a sharded world's ranks each restored from a
+                           peer, but not at one step (:class:`WorldGate`)
 
 One failure is NOT a degradation: a ``model_meta`` geometry mismatch on
 the peer path, or a shard whose shape differs from its target, hard-fails
 (:class:`GeometryMismatch`): a peer serving another geometry is a config
 error, and falling back to storage would mask it.
+
+**A sharded world** (a DTensor state over several ranks, such as a
+slice-local world of G cards a node) restores rank by rank: each rank asks
+the peer that holds its own shards, the same rank of another replica
+(``runtime/shard_server.local_peer_addresses``), and its storage rung is a
+collective DCP load. ``commit`` (:class:`WorldGate`) makes every rank's
+ladder vote once, before any rank copies a fetched byte into its state:
+the fetched shards are copied only when every rank fetched and verified
+its own at the same step; else every rank takes the storage rung together,
+with one cause, and a scatter-gather fills no shard from storage alone.
+
+**Seconds.** ``RestoreOutcome.split`` divides ``seconds`` into
+:data:`RESTORE_PARTS`. It rides no heartbeat: the Lease's restore rider
+stays the JAX package's ``path:cause:seconds[:bytes]``. Each outcome is
+observed into the port's registry (``tf_operator_tpu_torch/metrics.py``),
+best-effort, as the JAX module does at the end of the ladder.
 
 Everything network-shaped goes through the ``fetcher`` seam, and the
 ``fault_injector`` (anything with ``fault_for(op, peer_index)``, such as
@@ -79,6 +104,9 @@ deterministically without sockets.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import hashlib
 import json
 import logging
 import time
@@ -87,7 +115,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 from urllib.parse import quote
 
 import torch
+import torch.distributed as dist
 
+from ..metrics import METRICS
 from ..runtime.shard_server import (
     decode_shard,
     encode_shard,
@@ -97,6 +127,34 @@ from ..runtime.shard_server import (
 )
 
 log = logging.getLogger(__name__)
+
+# The parts of a restore's seconds: sha256 verification (and the
+# have-list's hashing); decoding payloads into tensors; the copies into
+# the state (host to device on the card); the geometry checks
+# (model_meta, shapes, dtypes, the sidecar); a DCP load, which reads,
+# decodes and copies in one call; a sharded world's vote (WorldGate),
+# which waits for the slowest rank; and fetch, the rest: probes, fetches
+# and file reads with their retries, and the ladder's bookkeeping (in a
+# parallel scatter-gather, each group's sha256 too).
+RESTORE_PARTS = ("fetch", "sha256", "decode", "h2d", "geometry", "dcp_load", "vote")
+# A sharded world's probes: how often its ranks probe again when their
+# peers' snapshots stand at different steps (a save between the probes).
+AGREE_TRIES = 5
+_SPLIT: contextvars.ContextVar = contextvars.ContextVar("restore_split", default=None)
+
+
+@contextlib.contextmanager
+def charged(part: str):
+    """Charge the block's seconds to ``part`` of the running ladder's
+    split (nothing outside a ladder, or on another thread). Blocks do not
+    nest."""
+    split = _SPLIT.get()
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        if split is not None:
+            split[part] = split.get(part, 0.0) + time.perf_counter() - t
 
 
 class GeometryMismatch(ValueError):
@@ -121,13 +179,20 @@ class RestoreOutcome:
     # Payload bytes that crossed the wire on the peer path; None on the
     # storage and none paths.
     bytes_moved: Optional[int] = None
+    # ``seconds`` by RESTORE_PARTS (module doc); not on the heartbeat.
+    split: Optional[Dict[str, float]] = None
+    # The peer rungs' {shard: sha256 of its payload}, each verified before
+    # the copy: what the state now holds. None on the other paths.
+    checksums: Optional[Dict[str, str]] = None
 
 
 def have_list(state) -> Dict[str, str]:
     """``{shard name: sha256 of its encoded payload}`` of a local state —
     the have-list a restoring rank advertises. The shard server's own
     encode-then-hash, so a match PROVES the local bytes equal the peer's."""
-    return {name: shard_checksum(encode_shard(t)) for name, t in flatten_state(state).items()}
+    with charged("sha256"):
+        return {name: shard_checksum(encode_shard(t))
+                for name, t in flatten_state(state).items()}
 
 
 # ---------------------------------------------------------------- transport
@@ -188,14 +253,19 @@ def _fetch_with_retry(fetcher, peer: str, peer_index: int, path: str, *,
 
 
 # ------------------------------------------------------------------ ladder
-def _assemble(state, shards: Dict[str, Any]):
-    """Copy a restored state into ``state`` in place. ``shards`` maps every
-    name of ``flatten_state(state)`` to a ``.npy`` payload or a tensor.
-    Every shard is decoded and checked first, so a missing name
-    (KeyError), an element type that is not the target's (ValueError) or
-    a shape mismatch (GeometryMismatch) leaves the state untouched; then
-    each is copied into its target, and the step and count are set."""
-    flat = flatten_state(state)
+class Vetoed(OSError):
+    """This rank verified its shards, but another rank of its world did
+    not (or not at the same step): nothing was copied (:class:`WorldGate`)."""
+
+    def __init__(self, cause: str) -> None:
+        super().__init__(f"a rank of the world voted against the peer restore ({cause})")
+        self.cause = cause
+
+
+def _decode_all(flat: Dict[str, torch.Tensor],
+                shards: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Every shard of ``flat`` (a state's ``flatten_state``) decoded and
+    checked against its target (:func:`_assemble`), nothing copied."""
     values = {}
     for name, target in flat.items():
         if name not in shards:
@@ -204,29 +274,107 @@ def _assemble(state, shards: Dict[str, Any]):
         if not isinstance(value, torch.Tensor):
             # The dtype comes from the target: a bf16 payload's header
             # says only "2-byte void".
-            value = decode_shard(value, target.dtype)
-        if tuple(value.shape) != tuple(target.shape):
-            raise GeometryMismatch(
-                f"peer shard {name} has shape {tuple(value.shape)} but the "
-                f"local state expects {tuple(target.shape)} — refusing a "
-                "mixed-geometry restore"
-            )
-        if value.dtype != target.dtype:
-            raise ValueError(f"shard {name} is {value.dtype}, the state holds {target.dtype}")
+            with charged("decode"):
+                value = decode_shard(value, target.dtype)
+        with charged("geometry"):
+            if tuple(value.shape) != tuple(target.shape):
+                raise GeometryMismatch(
+                    f"peer shard {name} has shape {tuple(value.shape)} but the "
+                    f"local state expects {tuple(target.shape)} — refusing a "
+                    "mixed-geometry restore"
+                )
+            if value.dtype != target.dtype:
+                raise ValueError(f"shard {name} is {value.dtype}, the state holds "
+                                 f"{target.dtype}")
         values[name] = value
-    with torch.no_grad():
+    return values
+
+
+def _assemble(state, shards: Dict[str, Any], commit=None):
+    """Copy a restored state into ``state`` in place. ``shards`` maps every
+    name of ``flatten_state(state)`` to a ``.npy`` payload or a tensor.
+    Every shard is decoded and checked first, so a missing name
+    (KeyError), an element type that is not the target's (ValueError) or
+    a shape mismatch (GeometryMismatch) leaves the state untouched; then,
+    when ``commit`` (a sharded world's :class:`WorldGate`) lets every rank
+    go (else :class:`Vetoed`), each is copied into its target, and the step
+    and count are set."""
+    flat = flatten_state(state)
+    try:
+        values = _decode_all(flat, shards)
+    except Exception:
+        if commit is not None:
+            with charged("vote"):
+                commit(False, None, "geometry-mismatch")
+        raise
+    if commit is not None:
+        with charged("vote"):
+            go, cause = commit(True, int(values["step"]), "ok")
+        if not go:
+            raise Vetoed(cause)
+    with torch.no_grad(), charged("h2d"):
         for name, target in flat.items():
             if name not in ("step", "opt/count") and values[name] is not target:
                 target.copy_(values[name])
+        # A copy into the card may still be queued; the restore ends when
+        # the copies have run.
+        if any(t.device.type == "cuda" for t in flat.values()):
+            torch.cuda.synchronize()
     state.step = int(values["step"])
     state.opt_state.count = int(values["opt/count"])
     return state
 
 
+class WorldGate:
+    """The votes of a sharded world's ladder (module doc), collectives
+    over ``group`` that every rank reaches at the same points of its
+    ladder. :meth:`agree` settles the step the ranks fetch before any
+    fetch; calling the gate, ``gate(ok, step, cause)``, once a rank, after
+    its fetch and checks or instead of them, answers ``(go, cause)``: go
+    only when every rank verified its own shards at one step, else the
+    cause of the lowest rank that failed, or ``peer-step-mismatch`` (a
+    later call returns the first answer)."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self._answer: Optional[Tuple[bool, str]] = None
+
+    def _gather(self, item) -> list:
+        items: List[Any] = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(items, item, group=self.group)
+        return items
+
+    def agree(self, step: Optional[int], cause: str) -> Tuple[Optional[int], str, bool]:
+        """Each rank's newest usable peer step (None: none, for ``cause``):
+        ``(step, cause, again)``, the step every rank's peer serves, or
+        None with the lowest such rank's cause, and whether to probe again
+        (every rank has a peer, at different steps: a snapshot rotated
+        between the probes)."""
+        votes = self._gather((step, cause))
+        missing = [c for s, c in votes if s is None]
+        if missing:
+            return None, missing[0], False
+        if len({s for s, _ in votes}) > 1:
+            return None, "peer-step-mismatch", True
+        return votes[0][0], "ok", False
+
+    def __call__(self, ok: bool, step: Optional[int], cause: str) -> Tuple[bool, str]:
+        if self._answer is None:
+            votes = self._gather((bool(ok), step, cause))
+            failed = [c for good, _, c in votes if not good]
+            if failed:
+                self._answer = (False, failed[0])
+            elif len({s for _, s, _ in votes}) > 1:
+                self._answer = (False, "peer-step-mismatch")
+            else:
+                self._answer = (True, "ok")
+        return self._answer
+
+
 def _restore_from_peer(state, ckpt, peer: str, peer_index: int, meta: dict, *,
                        fetcher, timeout: float, retries: int, backoff: float,
                        fault_injector, sleep,
-                       have: Optional[Dict[str, str]] = None,
+                       have: Optional[Dict[str, str]] = None, commit=None,
                        ) -> Tuple[Any, int]:
     """Fetch + verify + copy one peer's snapshot into ``state``; returns
     (state, payload bytes moved). Raises on any failure; the caller owns
@@ -246,7 +394,9 @@ def _restore_from_peer(state, ckpt, peer: str, peer_index: int, meta: dict, *,
         )
         if status != 200:
             raise OSError(f"peer {peer} returned {status} for shard {name}")
-        if shard_checksum(body) != expect:
+        with charged("sha256"):
+            good = shard_checksum(body) == expect
+        if not good:
             raise ChecksumMismatch(
                 f"shard {name} from {peer} failed sha256 verification"
             )
@@ -273,7 +423,7 @@ def _restore_from_peer(state, ckpt, peer: str, peer_index: int, meta: dict, *,
         # every run.
         for name in needed:
             shards[name] = fetch_one(name)
-        return _assemble(state, shards), bytes_moved
+        return _assemble(state, shards, commit), bytes_moved
 
     # Production path: one bundle request for the whole state. Every
     # framed payload is still verified against the meta checksum.
@@ -291,25 +441,35 @@ def _restore_from_peer(state, ckpt, peer: str, peer_index: int, meta: dict, *,
         # Older peer without the bundle endpoint: per-shard wire.
         for name in needed:
             shards[name] = fetch_one(name)
-        return _assemble(state, shards), bytes_moved
+        return _assemble(state, shards, commit), bytes_moved
+    if status == 409:
+        raise StepRotated(f"peer {peer} rotated past step {step} before the bundle")
     if status != 200:
         raise OSError(f"peer {peer} returned {status} for bundle")
     frames = parse_bundle(body)
+    del body
     for name in needed:
         payload = frames.get(name)
         if payload is None:
             raise OSError(f"peer {peer} bundle missing shard {name}")
-        if shard_checksum(payload) != meta["shards"][name]["checksum"]:
+        with charged("sha256"):
+            good = shard_checksum(payload) == meta["shards"][name]["checksum"]
+        if not good:
             raise ChecksumMismatch(
                 f"shard {name} from {peer} failed sha256 verification"
             )
         bytes_moved += len(payload)
         shards[name] = payload
-    return _assemble(state, shards), bytes_moved
+    return _assemble(state, shards, commit), bytes_moved
 
 
 class ChecksumMismatch(OSError):
     """A fetched shard's bytes don't hash to the advertised checksum."""
+
+
+class StepRotated(OSError):
+    """The peer took a newer snapshot between its meta and the bundle
+    (409): its meta is asked again (:func:`_ladder`)."""
 
 
 class ShardFillStepMismatch(OSError):
@@ -351,7 +511,9 @@ def _fetch_one_shard(fetcher, peer: str, peer_index: int, name: str,
     )
     if status != 200:
         raise OSError(f"peer {peer} returned {status} for shard {name}")
-    if shard_checksum(body) != expect:
+    with charged("sha256"):
+        good = shard_checksum(body) == expect
+    if not good:
         raise ChecksumMismatch(
             f"shard {name} from {peer} failed sha256 verification"
         )
@@ -383,7 +545,7 @@ def _storage_shard_fill(state, ckpt, step: int, names: Sequence[str]):
 def _restore_sharded(state, ckpt, candidates, step: int, *, fetcher,
                      timeout: float, retries: int, backoff: float,
                      fault_injector, sleep,
-                     have: Optional[Dict[str, str]] = None):
+                     have: Optional[Dict[str, str]] = None, commit=None):
     """Scatter-gather restore against every candidate peer at ``step``.
 
     ``candidates`` is ``[(peer_index, peer, manifest)]`` in discovery
@@ -452,6 +614,10 @@ def _restore_sharded(state, ckpt, candidates, step: int, *, fetcher,
 
     while remaining:
         if not live:
+            if commit is not None:
+                # A sharded world's storage rung is a collective load.
+                raise ShardFillStepMismatch(
+                    "a rank of a sharded world fills no shard from storage alone")
             fill = _storage_shard_fill(state, ckpt, step, remaining)
             shards.update(fill)
             sources["storage"] = sources.get("storage", 0) + len(fill)
@@ -471,6 +637,8 @@ def _restore_sharded(state, ckpt, candidates, step: int, *, fetcher,
         else:
             from concurrent.futures import ThreadPoolExecutor
 
+            # The pool's threads run outside the ladder's split: its wall
+            # time is charged to fetch, sha256 included.
             with ThreadPoolExecutor(max_workers=len(groups)) as pool:
                 futures = [
                     (i, pool.submit(fetch_group, i, groups[i]))
@@ -489,7 +657,7 @@ def _restore_sharded(state, ckpt, candidates, step: int, *, fetcher,
         for index in dead:
             live.pop(index, None)
         remaining = failed
-    return _assemble(state, shards), sources, bytes_moved
+    return _assemble(state, shards, commit), sources, bytes_moved
 
 
 def restore_with_fallback(
@@ -507,9 +675,11 @@ def restore_with_fallback(
     sharded: bool = False,
     warm_start: bool = False,
     have: bool = False,
+    commit=None,
 ) -> RestoreOutcome:
     """Run the restore ladder (module doc) into ``state`` and return the
-    outcome (``outcome.state`` is ``state``).
+    outcome (``outcome.state`` is ``state``), its seconds split, observed
+    into the registry.
 
     ``peers`` are ``host:port`` strings in discovery order; ``model_meta``
     is the local geometry to validate peer metas against (defaults to the
@@ -518,27 +688,57 @@ def restore_with_fallback(
     scatter-gather plan; ``warm_start`` skips the storage staleness probe
     so the happy path performs zero storage reads; ``have`` advertises the
     current state's per-shard checksums so the peer rung transfers only
-    the shards that differ.
+    the shards that differ; ``commit`` is a sharded world's
+    :class:`WorldGate` (module doc).
     """
-    from .checkpoint import geometry_mismatch
-
+    split: Dict[str, float] = {}
+    token = _SPLIT.set(split)
     t0 = time.perf_counter()
-    if model_meta is None:
-        model_meta = getattr(ckpt, "_model_meta", None)
-    if fault_injector is not None and \
-            hasattr(ckpt, "restore_fault_injector"):
-        # Hand the seeded injector to the storage rung too: delta-chain
-        # fault kinds fire inside CheckpointManager's manifest resolution.
-        ckpt.restore_fault_injector = fault_injector
-    have_map: Optional[Dict[str, str]] = have_list(state) if have else None
-    # Warm start: don't even ask storage what it has (the latest_step()
-    # probe is itself a storage read the zero-read contract forbids).
-    storage_step = None if warm_start else ckpt.latest_step()
+    try:
+        outcome = _ladder(state, ckpt, peers, model_meta=model_meta, timeout=timeout,
+                          retries=retries, backoff=backoff, fetcher=fetcher,
+                          fault_injector=fault_injector, sleep=sleep, sharded=sharded,
+                          warm_start=warm_start, have=have, commit=commit)
+    finally:
+        _SPLIT.reset(token)
+    outcome.seconds = time.perf_counter() - t0
+    split["fetch"] = max(outcome.seconds - sum(split.values()), 0.0)  # the rest
+    outcome.split = split
+    _observe(outcome)
+    return outcome
+
+
+def _checksums(meta: dict) -> Dict[str, str]:
+    return {name: entry["checksum"] for name, entry in meta["shards"].items()}
+
+
+def checksum_digest(checksums: Dict[str, str]) -> str:
+    """One sha256 over ``{shard: checksum}`` in name order: equal digests
+    mean equal bytes in every shard (a restore's ``checksums``, or a
+    manifest's)."""
+    text = "".join(f"{name}:{checksums[name]}\n" for name in sorted(checksums))
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _observe(outcome: RestoreOutcome) -> None:
+    try:
+        METRICS.observe_restore(outcome.path, outcome.cause, outcome.seconds)
+        if outcome.bytes_moved is not None:
+            METRICS.observe_restore_bytes(outcome.path, outcome.bytes_moved)
+    except Exception:  # noqa: BLE001 — telemetry never gates a restore
+        pass
+
+
+def _probe(peers, *, fetcher, timeout, retries, backoff, fault_injector, sleep, sharded,
+           storage_step, model_meta, mine):
+    """Every peer's meta (or manifest), in discovery order: ``(best,
+    probed, cause)``, the newest usable peer ``(index, peer, meta)`` or
+    None, every usable one, and the cause of the last one that was not."""
+    from .checkpoint import geometry_mismatch
 
     cause = "no-peers"
     best: Optional[Tuple[int, str, dict]] = None  # (peer_index, peer, meta)
     probed: List[Tuple[int, str, dict]] = []
-
     for index, peer in enumerate(peers):
         probe_path = "/v1/manifest" if sharded else "/v1/meta"
         probe_op = "manifest" if sharded else "meta"
@@ -592,16 +792,62 @@ def restore_with_fallback(
                 meta = dict(meta)
                 meta["step"] = (storage_step if storage_step is not None
                                 else int(meta["step"])) - 1
-        mismatched = geometry_mismatch(meta.get("model_meta"), model_meta)
+        with charged("geometry"):
+            mismatched = geometry_mismatch(meta.get("model_meta"), model_meta)
         if mismatched:
             raise GeometryMismatch(
                 "peer checkpoint model geometry mismatch (peer vs local): "
                 f"{mismatched} from {peer} — a mixed-geometry gang is a "
                 "config error; refusing to fall back silently"
             )
+        if meta.get("shard_of") != mine:
+            # Another rank's shards (or a whole state for a sharded one):
+            # never restored, whatever the shapes say.
+            cause = "peer-shard-mismatch"
+            log.warning("peer %s serves shards of %s; this rank holds %s", peer,
+                        meta.get("shard_of"), mine)
+            continue
         probed.append((index, peer, meta))
         if best is None or int(meta["step"]) > int(best[2]["step"]):
             best = (index, peer, meta)
+    return best, probed, cause
+
+
+def _ladder(state, ckpt, peers, *, model_meta, timeout, retries, backoff, fetcher,
+            fault_injector, sleep, sharded, warm_start, have, commit) -> RestoreOutcome:
+    from .checkpoint import shard_identity
+
+    t0 = time.perf_counter()
+    if model_meta is None:
+        model_meta = getattr(ckpt, "_model_meta", None)
+    if fault_injector is not None and \
+            hasattr(ckpt, "restore_fault_injector"):
+        # Hand the seeded injector to the storage rung too: delta-chain
+        # fault kinds fire inside CheckpointManager's manifest resolution.
+        ckpt.restore_fault_injector = fault_injector
+    have_map: Optional[Dict[str, str]] = have_list(state) if have else None
+    # Warm start: don't even ask storage what it has (the latest_step()
+    # probe is itself a storage read the zero-read contract forbids).
+    storage_step = None if warm_start else ckpt.latest_step()
+    mine = shard_identity(state)
+
+    for attempt in range(AGREE_TRIES):
+        best, probed, cause = _probe(peers, fetcher=fetcher, timeout=timeout,
+                                     retries=retries, backoff=backoff,
+                                     fault_injector=fault_injector, sleep=sleep,
+                                     sharded=sharded, storage_step=storage_step,
+                                     model_meta=model_meta, mine=mine)
+        if commit is None:
+            break
+        # A sharded world fetches at one step or not at all.
+        with charged("vote"):
+            step, world_cause, again = commit.agree(
+                int(best[2]["step"]) if best is not None else None, cause)
+        if step is not None or not again or attempt == AGREE_TRIES - 1:
+            if step is None:
+                best, cause = None, world_cause
+            break
+        sleep(backoff)
 
     if best is not None and sharded:
         best_step = int(best[2]["step"])
@@ -623,10 +869,12 @@ def restore_with_fallback(
                     state, ckpt, candidates, best_step,
                     fetcher=fetcher, timeout=timeout, retries=retries,
                     backoff=backoff, fault_injector=fault_injector,
-                    sleep=sleep, have=have_map,
+                    sleep=sleep, have=have_map, commit=commit,
                 )
             except GeometryMismatch:
                 raise
+            except Vetoed as err:
+                cause = err.cause
             except ShardFillStepMismatch as err:
                 cause = "shard-fill-step-mismatch"
                 log.warning("sharded restore degraded: %s", err)
@@ -643,6 +891,7 @@ def restore_with_fallback(
                            else "ok"),
                     seconds=time.perf_counter() - t0, peer=best[1],
                     sources=sources, bytes_moved=moved,
+                    checksums=_checksums(candidates[0][2]),
                 )
     elif best is not None:
         index, peer, meta = best
@@ -654,28 +903,50 @@ def restore_with_fallback(
                 "falling back to storage", peer_step, storage_step,
             )
         else:
-            try:
-                restored, moved = _restore_from_peer(
-                    state, ckpt, peer, index, meta,
-                    fetcher=fetcher, timeout=timeout, retries=retries,
-                    backoff=backoff, fault_injector=fault_injector,
-                    sleep=sleep, have=have_map,
-                )
-            except GeometryMismatch:
-                raise
-            except ChecksumMismatch as err:
-                cause = "checksum-mismatch"
-                log.warning("peer restore degraded: %s", err)
-            except (OSError, TimeoutError, KeyError, ValueError) as err:
-                cause = "peer-unreachable"
-                log.warning("peer restore degraded: %s", err)
-            else:
-                return RestoreOutcome(
-                    state=restored, step=peer_step, path="peer", cause="ok",
-                    seconds=time.perf_counter() - t0, peer=peer,
-                    bytes_moved=moved,
-                )
+            for rotation in range(retries + 1):
+                try:
+                    restored, moved = _restore_from_peer(
+                        state, ckpt, peer, index, meta,
+                        fetcher=fetcher, timeout=timeout, retries=retries,
+                        backoff=backoff, fault_injector=fault_injector,
+                        sleep=sleep, have=have_map, commit=commit,
+                    )
+                except GeometryMismatch:
+                    raise
+                except Vetoed as err:
+                    cause = err.cause
+                except ChecksumMismatch as err:
+                    cause = "checksum-mismatch"
+                    log.warning("peer restore degraded: %s", err)
+                except (OSError, TimeoutError, KeyError, ValueError) as err:
+                    cause = "peer-unreachable"
+                    log.warning("peer restore degraded: %s", err)
+                    if isinstance(err, StepRotated) and commit is None \
+                            and rotation < retries:
+                        # A survivor that trains on saves while a restore
+                        # asks it: its newer snapshot is as good.
+                        best, _, cause = _probe(
+                            peers, fetcher=fetcher, timeout=timeout, retries=retries,
+                            backoff=backoff, fault_injector=fault_injector, sleep=sleep,
+                            sharded=False, storage_step=storage_step,
+                            model_meta=model_meta, mine=mine)
+                        if best is not None:
+                            index, peer, meta = best
+                            peer_step = int(meta["step"])
+                            continue
+                else:
+                    return RestoreOutcome(
+                        state=restored, step=peer_step, path="peer", cause="ok",
+                        seconds=time.perf_counter() - t0, peer=peer,
+                        bytes_moved=moved, checksums=_checksums(meta),
+                    )
+                break
 
+    if commit is not None:
+        # Every rank of the world takes the storage rung together, with
+        # the world's cause (a no-op answer for a rank that already voted).
+        with charged("vote"):
+            _, cause = commit(False, None, cause)
     restored, step = ckpt.restore_latest(state)
     # A manifest chain that degraded to an older full step names its cause;
     # surface it over the generic peer-rung cause.
