@@ -175,7 +175,18 @@ Phases (any failure raises and the script exits non-zero):
       seconds splits and the telemetry families' series (their sums and
       counts, not their buckets) are printed; then
       ``scripts/measure_recovery_torch.py --smoke`` at llama-400m's state,
-      one trial a leg, its gates on, its legs' seconds printed.
+      one trial a leg, its gates on, its legs' seconds printed;
+  (s) the last layouts' new parts at full width, each against its whole
+      form in this process: moe-125m's MoE layer at [4, 8192] over 4
+      virtual sp ranks (``testing/virtual_ranks.moe_over_sp``), in its
+      groups of 256 (inside each rank's piece) and as one group of 8192
+      (the ranks' route counts placing each rank's slots), at capacity
+      factor 0.5 so that both drop routes, against the layer over the
+      whole sequence: output, aux loss and the gradients in x, the
+      router and the experts; llama-400m's loss at [8, 2048] x
+      32000 over 2 virtual tp shards (``cross_entropy.StackedShards``)
+      against the unsharded chunked loss: the loss and its gradients in
+      the hidden state and the head; each form's forward and backward ms.
 
 Phases e-m each reset the launch counters just before their runs and read
 them just after; the launched runs of q and r count in their own
@@ -1849,6 +1860,165 @@ def phase_r(main: dict, timeout: float = 900.0) -> None:
     recovery_legs()
 
 
+# Phase (s): the last layouts of the JAX package on one card, their new
+# parts at full width, held against the whole form in the same process.
+# moe-125m's MoE layer at the 4-card row's [4, 8192] (each of SP_RANKS
+# virtual sp ranks [4, 2048]) and llama-400m's loss at [8, 2048] x 32000
+# over VOCAB_SHARDS virtual tp shards. Both forms compute the same numbers
+# in bf16; only the shapes of the products and the order of the sums
+# differ, so the outputs and gradients are held at phase c's output
+# tolerance relative to their largest element, and the fp32 aux loss and
+# loss at LOSS_TOL.
+SP_LAYER = dict(b=4, s=8192)
+SP_RANKS = 4
+# The layer's capacity factor there: at 0.5 both groupings drop routes
+# (the phase fails where one does not). Where every route is kept, the
+# slot a rank's routes start from cannot change the output, and a wrong
+# offset across the ranks would pass unseen.
+SP_CAPACITY = 0.5
+VOCAB_LOSS = dict(b=8, s=2048)
+VOCAB_SHARDS = 2
+LAYOUT_TOL = 2e-2
+
+
+def phase_s() -> None:
+    """MoE over sp and the vocab-parallel loss on one card. The MoE layer
+    of moe-125m at capacity factor ``SP_CAPACITY`` (routes must drop in
+    both cases), as configured (routing groups of 256, inside each rank's
+    piece) and with ``moe_group_size=0`` (one group of 8192 positions over
+    the 4 ranks, whose slots start after the route counts of the ranks
+    before: ``testing/virtual_ranks.moe_over_sp``) against the layer over
+    the whole sequence: its output, aux loss and the gradients of
+    ``sum(y * dy) + aux`` in x, the router and the experts; the
+    vocab-parallel chunked loss (``StackedShards``: the two shards' rows of
+    the head, their max and sums of exponentials reduced between them)
+    against the unsharded chunked loss: the loss and its gradients in the
+    hidden state and the head. Each part's max errors and the ms of one
+    forward and backward of each form (each virtual rank's alone)."""
+    from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.ops import cross_entropy
+    from tf_operator_tpu_torch.testing.virtual_ranks import moe_over_sp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s = SP_LAYER["b"], SP_LAYER["s"]
+    for group in (llama.CONFIGS["moe-125m"].moe_group_size, 0):
+        cfg = dataclasses.replace(llama.CONFIGS["moe-125m"], max_seq_len=s,
+                                  moe_group_size=group, capacity_factor=SP_CAPACITY)
+        moe = llama.MoE(cfg, device="cuda")
+        with torch.no_grad():
+            for p in moe.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+        x = torch.randn(b, s, cfg.dim, device="cuda", generator=gen).to(cfg.dtype)
+        dy = torch.randn(b, s, cfg.dim, device="cuda", generator=gen).to(cfg.dtype)
+        params = list(moe.parameters())
+
+        def grads(layer, x=x, dy=dy, params=params):
+            leaf = x.detach().requires_grad_()
+            y, aux = layer(leaf)
+            return (y.detach(), aux.detach(), *torch.autograd.grad(
+                (y.float() * dy.float()).sum() + aux, [leaf, *params]))
+
+        whole = grads(moe)
+        slots, experts = [], moe._experts
+        moe._experts = lambda h, experts=experts: slots.append(h.shape[2]) or experts(h)
+        try:
+            virtual = grads(lambda t, moe=moe: moe_over_sp(moe, t, SP_RANKS))
+        finally:
+            del moe._experts
+        length, span = llama.routing_groups(cfg, s // SP_RANKS, SP_RANKS)
+        what = (f"moe-125m MoE layer [{b}, {s}] capacity factor {SP_CAPACITY}, groups of "
+                f"{length} (span {span} ranks)")
+        routing = moe.route(x)
+        kept = sum(int(((oh.cumsum(1) - oh + off[:, None]) < routing.cap)[oh > 0].sum())
+                   for oh, off in zip(routing.onehot.unbind(2), llama.slot_offsets(
+                       routing.counts()[None], 0, 1)))
+        routes = int(routing.onehot.sum())
+        log(f"[s] {what}: capacity {routing.cap}, routes kept {kept} of {routes}; each sp "
+            f"rank's experts ran on {slots} slots")
+        if kept >= routes:
+            raise AssertionError(f"{what}: no route dropped, so the ranks' slot offsets "
+                                 "go unchecked")
+        names = ["y", "aux", "dx"] + [n for n, _ in moe.named_parameters()]
+        for name, got, ref in zip(names, virtual, whole):
+            if name == "aux":
+                err = abs(got.item() - ref.item())
+                ok = rel(got.item(), ref.item()) <= LOSS_TOL
+                log(f"[s] {what} over {SP_RANKS} sp ranks: aux {got.item():.6f} against "
+                    f"{ref.item():.6f}, max_abs_err {err:.3e} (tol {LOSS_TOL} rel) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{what}: aux loss over sp {got} against {ref}")
+            else:
+                check(name, f"sp{SP_RANKS}/g{length}", got, ref, LAYOUT_TOL, "s")
+        whole_ms = time_ms(lambda: grads(moe), iters=3, warmup=1)
+        pieces = [p.contiguous() for p in x.chunk(SP_RANKS, 1)]
+        rank_ms = []
+        for r in range(SP_RANKS):
+            layout = moe.layout
+            moe.layout = dataclasses.replace(layout, sp_rank=r, sp_size=SP_RANKS)
+            try:
+                # One rank's own forward and backward: its counts as the
+                # exchange would give them, read once beforehand.
+                counts = torch.stack([moe.route(p).counts() for p in pieces])
+
+                def one_rank(r=r, counts=counts):
+                    routing = moe.route(pieces[r].requires_grad_())
+                    y = moe.assign(routing, llama.slot_offsets(counts, r, span))
+                    f, p = routing.stats()
+                    aux = moe.aux_loss(f, p, routing.tokens * SP_RANKS)
+                    return torch.autograd.grad((y.float() * dy.chunk(SP_RANKS, 1)[r].float())
+                                               .sum() + aux, [pieces[r], *params])
+
+                rank_ms.append(time_ms(one_rank, iters=3, warmup=1))
+            finally:
+                moe.layout = layout
+        log(f"[s] {what}: forward + backward ms, whole layer {whole_ms:.4f}, each sp rank "
+            f"{[round(t, 4) for t in rank_ms]} (sum {sum(rank_ms):.4f})")
+        del moe, whole, virtual, x, dy, params, pieces
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = llama.CONFIGS["llama-400m"]
+    b, s = VOCAB_LOSS["b"], VOCAB_LOSS["s"]
+    hidden = torch.randn(b, s, cfg.dim, device="cuda", generator=gen).to(cfg.dtype)
+    head = (0.02 * torch.randn(cfg.vocab_size, cfg.dim, device="cuda", generator=gen)
+            ).to(cfg.dtype)
+    targets = torch.randint(0, cfg.vocab_size, (b, s), device="cuda", generator=gen)
+    targets[:, -1] = -1  # a padded stream's last position: ignored
+
+    def loss_grads(fn, weight):
+        h, w = hidden.detach().requires_grad_(), weight.detach().requires_grad_()
+        value = fn(h, w)
+        return (value.detach(), *torch.autograd.grad(value, [h, w]))
+
+    def whole_loss(h, w):
+        return cross_entropy.chunked_cross_entropy(h, w, targets)
+
+    def split_loss(h, w):
+        return cross_entropy.vocab_parallel_cross_entropy(
+            h, w, targets, cross_entropy.StackedShards(VOCAB_SHARDS))
+
+    shards = head.view(VOCAB_SHARDS, -1, cfg.dim)
+    ref = loss_grads(whole_loss, head)
+    got = loss_grads(split_loss, shards)
+    what = f"llama-400m loss [{b}, {s}] x {cfg.vocab_size} over {VOCAB_SHARDS} tp shards"
+    ok = rel(got[0].item(), ref[0].item()) <= LOSS_TOL
+    log(f"[s] {what}: loss {got[0].item():.6f} against {ref[0].item():.6f}, max_abs_err "
+        f"{abs(got[0].item() - ref[0].item()):.3e} (tol {LOSS_TOL} rel) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: loss {got[0]} against {ref[0]}")
+    check("dh", f"tp{VOCAB_SHARDS}", got[1], ref[1], LAYOUT_TOL, "s")
+    check("dw", f"tp{VOCAB_SHARDS}", got[2].view_as(head), ref[2], LAYOUT_TOL, "s")
+    whole_ms = time_ms(lambda: loss_grads(whole_loss, head), iters=3, warmup=1)
+    split_ms = time_ms(lambda: loss_grads(split_loss, shards), iters=3, warmup=1)
+    log(f"[s] {what}: forward + backward ms, unsharded {whole_ms:.4f}, both shards stacked "
+        f"{split_ms:.4f}; phase s took {time.perf_counter() - t0:.1f} s")
+
+
 def recovery_legs() -> None:
     """``scripts/measure_recovery_torch.py`` on the card at llama-400m's
     state, one trial a leg, its gates on; its legs' seconds printed."""
@@ -1922,6 +2092,7 @@ def main() -> int:
     phase_p(peak)
     phase_q(main)
     phase_r(main)
+    phase_s()
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -43,7 +43,9 @@ seed; then, in the N processes, the rows:
   among them), and one all-to-all of the dispatch's shape timed alone;
 - bert-base data parallel over dp=N on the JAX bench's BERT path
   (``train_step.loss_fn`` with no mask: the d=64 flash kernels), global
-  batch 16N, seq 512, 4 steps: the losses at ``LOSS_TOL``;
+  batch 16N, seq 512, 4 steps: the losses at ``LOSS_TOL``; and over
+  fsdp=N/2 x tp=2, where BERT's step is data parallel over the whole
+  world too: its losses bit-equal to the dp=N row's;
 - moe-125m over ep=N through DCP: 2 steps, a save, a restore into a new
   setup byte-equal to the saved state (every rank's shards and moments),
   and 2 steps resumed from it with the ep=N run's losses of steps 2-3;
@@ -56,7 +58,10 @@ seed; then, in the N processes, the rows:
   at seq 2048, global batch 8N, over pp=4 (6 layers a stage, M=4 and
   M=8 microbatches), pp=2 x fsdp=2 and pp=2 x tp=2 (M=2) against the
   one-card llama run, each stage's launches and permutes a step against
-  :func:`pipe_expect`;
+  :func:`pipe_expect`; moe-125m at seq 8192, global batch 4, over sp=4
+  and sp=2 x ep=2 against a one-card run of the same batch, each ring
+  rank's launches and permutes against :func:`ring_expect` under its
+  "+rope" policy, its all-to-alls a step;
 - resnet50 data parallel over the N cards through ``resnet_train`` at
   224x224, global batch 64N (256 at 4 cards), 4 steps, the BatchNorm
   statistics the global batch's: each loss against a one-card run of the
@@ -347,8 +352,9 @@ def references(plan: Plan, tokens: str) -> dict:
     refs["resnet"] = train_resnet(plan)
     names = ["llama", "moe", "bert", "resnet"]
     if plan.procs == 4:
-        refs["llama_long"] = train_llama(plan, llama_args(plan, plan.llama, tokens, long=True))
-        names.append("llama_long")
+        for name, model in (("llama_long", plan.llama), ("moe_long", plan.moe)):
+            refs[name] = train_llama(plan, llama_args(plan, model, tokens, long=True))
+            names.append(name)
     for name in names:
         r = refs[name]
         log(f"[n] one card: {r['model']} losses {r['losses']}, step {r['step_s']:.4f} s, "
@@ -638,7 +644,7 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
     if ref is not None:
         tol = cs.LOSS_TOL
         worst = max(cs.rel(a, b) for a, b in zip(losses, ref["losses"]))
-        if row.get("ref") == "moe":
+        if row.get("ref") in ("moe", "moe_long"):
             first = cs.rel(losses[0], ref["losses"][0])
             later = max(cs.rel(a, b) for a, b in zip(losses[1:], ref["losses"][1:]))
             ok = first <= cs.LOSS_TOL and later <= cs.PARITY_TOL["loss"]
@@ -653,7 +659,8 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
         worst_twin = max(cs.rel(a, b) for a, b in zip(losses, row["twin"]))
         log(f"[n] {what}: losses {losses} against the {row['same_as']} row's {row['twin']}: "
             f"worst rel {worst_twin:.3e} (tol {cs.LOSS_TOL}), bit-equal {losses == row['twin']}")
-        if len(losses) != len(row["twin"]) or not worst_twin <= cs.LOSS_TOL:
+        if len(losses) != len(row["twin"]) or not worst_twin <= cs.LOSS_TOL or (
+                row.get("bit_equal") and losses != row["twin"]):
             fails.append(f"{what}: losses {losses} against the {row['same_as']} row's "
                          f"{row['twin']}")
     if row.get("replicas") is not None:
@@ -850,8 +857,8 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
             ordered = [r for _, r in sorted(all_routes, key=lambda x: x[0])]
             routes[name] = {i: interleave([r[i] for r in ordered], plan.rows)
                             for i in ordered[0]}
-        gather(row, name, ref=ref, kernels=True, a2a_expected=moe and "tp" not in (spec or {}),
-               **extra)
+        a2a = extra.pop("a2a_expected", moe and "tp" not in (spec or {}))
+        gather(row, name, ref=ref, kernels=True, a2a_expected=a2a, **extra)
         return row
 
     half = n // 2
@@ -888,14 +895,18 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
                     for t in ep["trace"]]
     ep["a2a_alone_ms"] = a2a_alone(plan, n)
 
-    # BERT data parallel over dp=N.
-    os.environ["JAX_MESH_SPEC"] = json.dumps({"dp": n})
+    # BERT data parallel over dp=N, and over fsdp=N/2 x tp=2: data
+    # parallel over the whole world there too, as the JAX example is.
     from tf_operator_tpu_torch.models import bert
 
-    mesh = gpu_init.global_mesh(device=plan.device)
-    group, size = data_parallel_group(bert.CONFIGS[plan.bert], mesh)
-    gather(train_bert(plan, group, rank, size), f"{plan.bert} dp={n}", mesh=mesh_axes(mesh),
-           ref="bert", kernels=True)
+    for spec in ({"dp": n}, {"fsdp": half, "tp": 2}):
+        os.environ["JAX_MESH_SPEC"] = json.dumps(spec)
+        mesh = gpu_init.global_mesh(device=plan.device)
+        group, size = data_parallel_group(bert.CONFIGS[plan.bert], mesh)
+        name = f"{plan.bert} " + " x ".join(f"{a}={k}" for a, k in spec.items())
+        twin = {} if "dp" in spec else {"same_as": f"{plan.bert} dp={n}", "bit_equal": True}
+        gather(train_bert(plan, group, rank, size), name, mesh=mesh_axes(mesh), ref="bert",
+               kernels=True, **twin)
 
     dcp_row(plan, tokens, tmp, ep, rows, gather, n)
     if n == 4:
@@ -922,13 +933,17 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
 SDPA_MARKS = ("pytorch_flash", "fmha", "sdpa", "efficient_attention")
 
 
-def ring_expect(layers: int, n: int, r: int) -> dict:
-    """Launches and permutes a step on ring rank r of n under "dots": r + 1
-    flash forwards a layer (the skipped blocks launch nothing), as many dQ
-    and dK/dV, 6 ropes (forward, replay, backward; q and k), and n - 1 K/V
-    rotations forward and n - 1 backward (the tape serves the replay's)."""
+def ring_expect(layers: int, n: int, r: int, policy: str = "dots") -> dict:
+    """Launches and permutes a step on ring rank r of n under a "dots"
+    policy: r + 1 flash forwards a layer (the skipped blocks launch
+    nothing), as many dQ and dK/dV, 6 ropes (forward, replay, backward; q
+    and k; 4 where the policy keeps the rotated q and k, "+rope"), and
+    n - 1 K/V rotations forward and n - 1 backward (the tape serves the
+    replay's)."""
+    ropes = 4 if "rope" in policy.split("+") else 6
     return {"flash_fwd": layers * (r + 1), "flash_dq": layers * (r + 1),
-            "flash_dkv": layers * (r + 1), "rope": 6 * layers, "ppermute": 2 * (n - 1) * layers}
+            "flash_dkv": layers * (r + 1), "rope": ropes * layers,
+            "ppermute": 2 * (n - 1) * layers}
 
 
 def pipe_expect(layers: int, pp: int, m: int, stage: int) -> dict:
@@ -951,6 +966,7 @@ def sequence_and_pipeline_rows(plan: Plan, tokens: str, tmp: str, layout, rows: 
     import torch.distributed as dist
 
     from tf_operator_tpu_torch.models import llama
+    from tf_operator_tpu_torch.parallel.sharding import resolve_expert_axis
 
     cfg = llama.CONFIGS[plan.llama]
     long_args = llama_args(plan, plan.llama, tokens, long=True)
@@ -965,6 +981,16 @@ def sequence_and_pipeline_rows(plan: Plan, tokens: str, tmp: str, layout, rows: 
     row = ring[0]
     row["trace"] = [None] * 4
     dist.all_gather_object(row["trace"], mine)
+    # MoE over sp: the ring's blocks and the experts on each rank's own
+    # slots, the aux loss's statistics summed over sp.
+    moe = llama.CONFIGS[plan.moe]
+    moe_args = llama_args(plan, plan.moe, tokens, long=True)
+    for spec in ({"sp": 4}, {"sp": 2, "ep": 2}):
+        r = rank % spec["sp"]  # sp is the innermost axis here
+        layout(f"{plan.moe} seq {plan.long_seq} " + " x ".join(
+            f"{a}={k}" for a, k in spec.items()), spec, moe_args, ref="moe_long",
+            expect=ring_expect(moe.n_layers, spec["sp"], r, moe.remat_policy),
+            a2a_expected=resolve_expert_axis(spec, moe.n_experts) is not None)
     base = cfg
     for spec, m in (({"pp": 4}, 4), ({"pp": 4}, 8), ({"pp": 2, "fsdp": 2}, 0),
                     ({"pp": 2, "tp": 2}, 0)):

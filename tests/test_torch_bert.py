@@ -45,7 +45,6 @@ from tf_operator_tpu.train import train_step as jax_ts
 from tf_operator_tpu_torch.models import bert, convert
 from tf_operator_tpu_torch.ops import flash
 from tf_operator_tpu_torch.parallel import sharding
-from tf_operator_tpu_torch.runtime import gpu_init
 from tf_operator_tpu_torch.train import bert_train
 from tf_operator_tpu_torch.train import train_step as ts
 
@@ -294,26 +293,24 @@ def test_bert_train_prints_finite_losses(capsys):
 
 
 def test_multi_card_bert_is_refused(monkeypatch):
-    """BERT's step is data parallel over the data axes; over tp it is
-    refused, by bert_train and by the sharding rules."""
-    monkeypatch.setattr(gpu_init, "initialize",
-                        lambda device=None: gpu_init.Topology(num_processes=2))
-    monkeypatch.setattr(bert_train.dist, "is_initialized", lambda: True)
-    mesh = types.SimpleNamespace(mesh_dim_names=("fsdp", "tp"),
-                                 mesh=types.SimpleNamespace(shape=(1, 2)))
-    monkeypatch.setattr(gpu_init, "global_mesh", lambda topo, device: mesh)
-    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
-        bert_train.run(bert_train.parse_args(["--device", "cpu", "--steps", "1"]))
-    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
-        sharding.check_shardable(bert.CONFIGS["bert-base"], {"fsdp": 2, "tp": 2})
-    for axes in ({"fsdp": 2}, {"dp": 2, "fsdp": 2}, {"slice": 2, "ep": 2, "tp": 1}):
+    """No mesh refuses BERT any more: its step is data parallel over the
+    whole world whatever axes the mesh declares, as the JAX example shards
+    its batch over every mesh axis (``data_parallel_group``)."""
+    monkeypatch.setattr(sharding.dist, "get_world_size", lambda group=None: 4)
+    for axes in ({"fsdp": 2, "tp": 2}, {"fsdp": 2}, {"dp": 2, "fsdp": 2}, {"sp": 4},
+                 {"slice": 2, "ep": 2, "tp": 1}, {"pp": 2, "tp": 2}):
         sharding.check_shardable(bert.CONFIGS["bert-base"], axes)
+        mesh = types.SimpleNamespace(mesh_dim_names=tuple(axes),
+                                     mesh=types.SimpleNamespace(shape=tuple(axes.values())))
+        group = sharding.data_parallel_group(bert.CONFIGS["bert-base"], mesh)
+        assert group == (sharding.dist.group.WORLD, 4)
 
 
 # ------------------------------------------------- data parallel, 2 processes
 DP_STEPS, DP_BATCH, DP_MASK, DP_LR = 3, 4, 0.3, 1e-3
 DP_ARGS = ["--device", "cpu", "--steps", str(DP_STEPS), "--batch", str(DP_BATCH), "--seq",
            str(SEQ), "--mask-prob", str(DP_MASK), "--lr", str(DP_LR), "--log-every", "1"]
+MESH_TP = '{"fsdp": 1, "tp": 2}'
 DP_WORKER = r"""
 import dataclasses, json, sys
 import torch, torch.distributed as dist
@@ -374,21 +371,28 @@ def example_losses():
 
 @pytest.fixture(scope="module")
 def data_parallel(tmp_path_factory):
-    """{"ranks": [losses of rank 0, rank 1], "single": one process on the
-    same global batches, "example": the JAX example's step, "unmoved": the
-    last batch's loss on the initial weights}."""
+    """{"ranks": [losses of rank 0, rank 1], "tp_ranks": the same over mesh
+    MESH_TP, "single": one process on the same global batches, "example":
+    the JAX example's step, "unmoved": the last batch's loss on the
+    initial weights}."""
     tmp = tmp_path_factory.mktemp("bert_dp")
     state_path = tmp / "state.pt"
     torch.save(reference()["state"], state_path)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
+    # The same run over a mesh with a tp axis: data parallel over the world.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        tp_port = sock.getsockname()[1]
+    runs = (("losses", port, {}), ("tp_losses", tp_port, {"JAX_MESH_SPEC": MESH_TP}))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", DP_WORKER, str(tmp / "losses"), str(state_path), *DP_ARGS],
+        [sys.executable, "-c", DP_WORKER, str(tmp / name), str(state_path), *DP_ARGS],
         cwd=EXAMPLE.parents[3], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env={**os.environ, "OMP_NUM_THREADS": "1", "JAX_COORDINATOR_ADDRESS":
-             f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(r)})
-        for r in range(2)]
+             f"127.0.0.1:{run_port}", "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(r),
+             **extra})
+        for name, run_port, extra in runs for r in range(2)]
     try:
         model = build()
         opt = ts.adamw(DP_LR, weight_decay=0.01)
@@ -410,7 +414,9 @@ def data_parallel(tmp_path_factory):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
     ranks = [json.loads((tmp / f"losses.{r}").read_text()) for r in range(2)]
-    return {"ranks": ranks, "single": single, "example": example, "unmoved": unmoved}
+    tp_ranks = [json.loads((tmp / f"tp_losses.{r}").read_text()) for r in range(2)]
+    return {"ranks": ranks, "tp_ranks": tp_ranks, "single": single, "example": example,
+            "unmoved": unmoved}
 
 
 def test_data_parallel_bert_train_matches_one_process(data_parallel):
@@ -429,6 +435,12 @@ def test_data_parallel_bert_train_matches_the_jax_example_step(data_parallel):
     np.testing.assert_allclose(data_parallel["example"], data_parallel["single"], rtol=1e-5)
     for losses in data_parallel["ranks"]:
         np.testing.assert_allclose(losses, data_parallel["example"], rtol=1e-5)
+
+
+def test_bert_over_a_tp_mesh_gives_the_data_parallel_losses(data_parallel):
+    # Over {"fsdp": 1, "tp": 2} the two processes are two data replicas,
+    # as the JAX example makes them: the dp=2 run's losses, bit for bit.
+    assert data_parallel["tp_ranks"] == data_parallel["ranks"]
 
 
 def test_config_accounting_matches():

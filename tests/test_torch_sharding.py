@@ -2,9 +2,9 @@
 ``train_step.init_sharded_train_state``) on the CPU.
 
 The tensor-parallel rules put tp where the JAX package's ``_PARAM_RULES``
-put it on every block weight; the embedding and the head differ by design
-(fsdp only). Every axis of the JAX package is kept, ``ep``, ``sp`` and
-``pp`` at size 1 too; only the JAX package's own refusals remain. Two
+put it on every block weight, the embedding and the head. Every axis of
+the JAX package is kept, ``ep``, ``sp`` and ``pp`` at size 1 too; only
+the JAX package's own refusals remain. Two
 2-process gloo runs of the ``llama_train`` entry point on llama-tiny at
 fp32 under remat "dots", from a token file, one with mesh fsdp=2 (from
 the JAXJob env) and one with tp=2 (from a PyTorchJob's c10d env): the born-sharded weights
@@ -93,19 +93,18 @@ def test_tp_rules_match_the_jax_rules():
         "layers.1.feed_forward.w2.weight": ("params/layers/feed_forward/w2/kernel", (2, 128, 64), {1}),
         "layers.1.attention_norm.scale": ("params/layers/attention_norm/scale", (2, 64), set()),
         "norm.scale": ("params/norm/scale", (64,), set()),
+        # The embedding [vocab, d] splits its d over tp, the head [d, vocab]
+        # its vocab: the output axis of each, torch's colwise split of an
+        # Embedding and of a Linear.
+        "tok_embeddings.weight": ("params/tok_embeddings/embedding", (256, 64), {0}),
+        "output.weight": ("params/output/kernel", (64, 256), {0}),
     }
     for name, (path, shape, inputs) in cases.items():
         assert sharding.tp_style(name) == _jax_style(path, shape, inputs, mesh), name
-    # The recorded layout difference: the JAX rules split the embedding's d
-    # and the head's vocab over tp; the port keeps both whole over tp.
-    for name, path, shape in (("tok_embeddings.weight", "params/tok_embeddings/embedding",
-                               (256, 64)), ("output.weight", "params/output/kernel", (64, 256))):
-        assert sharding.tp_style(name) is None
-        assert "tp" in tuple(spec_for_param(path, 2, mesh, shape=shape))
     model = llama.Llama(FP32_TINY, device="meta")
     names = {n for n, _ in model.named_parameters()}
     styled = {n for n in names if sharding.tp_style(n)}
-    assert len(styled) == 7 * FP32_TINY.n_layers
+    assert len(styled) == 7 * FP32_TINY.n_layers + 2
     assert sharding.DATA_AXES == ("slice", "dp", "fsdp", "ep")
 
 
@@ -129,12 +128,12 @@ def test_unported_axes_are_refused():
     with pytest.raises(ValueError, match="not divisible by slice\\*pp\\*dp\\*ep\\*sp\\*tp=4"):
         port_mesh.standard_mesh(6, sp=2, pp=2, device_type="cpu")
     # The refusals that remain are the JAX package's own: MoE and ring
-    # attention under a pipeline (models/llama.py), and BERT over any
-    # axis but the data axes.
-    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
-        sharding.check_shardable(bert.CONFIGS["bert-tiny"], {"fsdp": 1, "sp": 2})
-    with pytest.raises(NotImplementedError, match="item 3c, BERT over tp"):
-        sharding.check_shardable(bert.CONFIGS["bert-tiny"], {"pp": 2, "fsdp": 1})
+    # attention under a pipeline (models/llama.py). BERT trains on any
+    # mesh, data parallel over the whole world, as the JAX example does.
+    for axes in ({"fsdp": 1, "sp": 2}, {"pp": 2, "fsdp": 1}, {"fsdp": 2, "tp": 2}):
+        sharding.check_shardable(bert.CONFIGS["bert-tiny"], axes)
+    with pytest.raises(ValueError, match="vocab_size=256 over tp=3"):
+        sharding.check_shardable(llama.CONFIGS["llama-tiny"], {"fsdp": 1, "tp": 3})
     ring = dataclasses.replace(llama.CONFIGS["llama-tiny"], attention_impl="ring")
     sharding.check_shardable(ring, {"fsdp": 2, "sp": 2})
     sharding.check_shardable(llama.CONFIGS["llama-tiny"], {"pp": 2, "fsdp": 2})
@@ -152,8 +151,11 @@ def test_unported_axes_are_refused():
     finally:
         dist.destroy_process_group()
     assert port_mesh.mesh_axes(mesh) == {"fsdp": 1, "ep": 1}
+    ring_moe = dataclasses.replace(llama.CONFIGS["moe-tiny"], attention_impl="ring")
     for axes in ({"fsdp": 1, "tp": 2}, {"fsdp": 2, "ep": 2}):
         sharding.check_shardable(llama.CONFIGS["moe-tiny"], axes)
+    for axes in ({"fsdp": 1, "sp": 2}, {"fsdp": 1, "ep": 2, "sp": 2}, {"sp": 2, "tp": 2}):
+        sharding.check_shardable(ring_moe, axes)
     sharding.check_shardable(llama.CONFIGS["llama-tiny"], {"fsdp": 1, "tp": 2})
     assert port_mesh.AXIS_ORDER == ("slice", "pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -237,7 +239,10 @@ def test_layouts(runs):
     assert tp["mesh_dims"][wq] == ["fsdp", "tp"]
     assert tp["placements"][wq][1] == "Shard(dim=0)"  # output features over tp
     assert tp["placements"][wo][1] == "Shard(dim=1)"  # input features over tp
-    assert tp["mesh_dims"]["output.weight"] == ["fsdp"]  # not split over tp
+    # The head's vocab and the embedding's d over tp, both also over fsdp.
+    assert tp["mesh_dims"]["output.weight"] == ["fsdp", "tp"]
+    assert tp["placements"]["output.weight"][1] == "Shard(dim=0)"
+    assert tp["placements"]["tok_embeddings.weight"][1] == "Shard(dim=1)"
     # Data ranks: fsdp ranks read disjoint halves; tp ranks the same batch.
     assert [r["data_coords"] for r in runs["fsdp"]] == [[0, 2], [1, 2]]
     assert [r["data_coords"] for r in runs["tp"]] == [[0, 1], [0, 1]]

@@ -280,11 +280,12 @@ def slice_job(tmp_path_factory):
         out["uids"] = {n: cluster.get_pod("default", n).metadata.uid for n in names}
         cluster.kill_pod("default", names[1])  # the launcher; its ranks die with it
         # What each slice's stream held when slice 1 died: slice 1 restarts
-        # from its own newest step, slice 0's runs on.
+        # from its own newest step, slice 0's runs on. The slices start in
+        # either order, so slice 0 may not have saved yet: its stream is
+        # then empty.
         time.sleep(1.0)
-        out["streams"] = {i: sorted(int(d) for d in os.listdir(
-            os.path.join(ckpt, f"slice-{i}", "dcp")) if os.path.exists(
-            os.path.join(ckpt, f"slice-{i}", "dcp", d, ".metadata"))) for i in range(2)}
+        out["streams"] = {i: durable_steps(os.path.join(ckpt, f"slice-{i}", "dcp"))
+                          for i in range(2)}
         out["recreated"] = wait_for(lambda: recreated(cluster, out["uids"], names[1]),
                                     timeout=120)
         out["succeeded"] = wait_for(lambda: job_condition(cluster, "slc", "Succeeded"),
@@ -305,6 +306,17 @@ def cluster_read(path):
             return json.load(f)
     except (OSError, ValueError):
         return None
+
+
+def durable_steps(stream):
+    """The steps of a slice's DCP stream that have their metadata; none
+    where the slice has not saved yet."""
+    try:
+        names = os.listdir(stream)
+    except FileNotFoundError:
+        return []
+    return sorted(int(d) for d in names
+                  if os.path.exists(os.path.join(stream, d, ".metadata")))
 
 
 def recreated(cluster, uids, name):

@@ -41,13 +41,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops import attention as attn_ops
 from ..ops import remat
-from ..ops.cross_entropy import chunked_cross_entropy
+from ..ops.cross_entropy import VocabGroup, chunked_cross_entropy, vocab_parallel_cross_entropy
 from ..ops.ring_attention import ring_attention
 from ..ops.rope import rope
 from ..parallel import experts as ep
@@ -373,6 +373,73 @@ class MLP(nn.Module):
         return self.w2(_mul(F.silu(self.w1(x)), self.w3(x), "mlp_act"))
 
 
+def routing_groups(cfg: LlamaConfig, s_local: int, sp_size: int = 1) -> tuple:
+    """(positions of one routing group, sp ranks it spans) for a piece of
+    ``s_local`` positions of a sequence split over ``sp_size`` ranks. As in
+    the JAX layer, the whole sequence routes in groups of
+    ``moe_group_size`` positions when that divides a longer sequence, else
+    as one group. A group inside one rank's piece routes there alone (span
+    1); a group of several whole pieces spans their ranks, which exchange
+    their counts; any other split is refused."""
+    whole = s_local * sp_size
+    group = cfg.moe_group_size
+    length = group if group and whole > group and whole % group == 0 else whole
+    if s_local % length == 0:
+        return length, 1
+    if length % s_local == 0:
+        return length, length // s_local
+    raise ValueError(
+        f"moe_group_size={group} over {sp_size} sp ranks of {s_local} positions each: a "
+        f"routing group of {length} positions neither lies inside one rank's piece nor "
+        "covers whole pieces")
+
+
+def slot_offsets(counts: torch.Tensor, rank: int, span: int) -> torch.Tensor:
+    """Where sp rank ``rank``'s routes start taking slots, per routing rank,
+    batch row and expert ([k, b, e]), from ``counts`` [n, k, b, e], the
+    route counts of every sp rank (of this rank alone, [1, k, b, e] at
+    rank 0, when its routing groups span 1 rank), its group the ``span``
+    ranks from ``rank - rank % span``. Slots go rank-major over the whole
+    group: routing rank j starts after every route of the routing ranks
+    below j and rank j's routes at the group's earlier positions, on the
+    ranks before this one."""
+    place = rank % span
+    group = counts[rank - place:rank - place + span]
+    total = group.sum(0)
+    return group[:place].sum(0) + total.cumsum(0) - total
+
+
+@dataclass
+class Routing:
+    """The router's choices for one rank's tokens (``MoE.route``): the
+    grouped input ``x`` [b, s, d], the fp32 ``probs`` [b, s, e], the
+    renormalised ``gate`` and expert ``idx`` [b, s, k], their ``onehot``
+    [b, s, k, e], the per-expert capacity ``cap``, the sp ranks a routing
+    group ``span``s, and the input's ``shape``."""
+
+    x: torch.Tensor
+    probs: torch.Tensor
+    gate: torch.Tensor
+    idx: torch.Tensor
+    onehot: torch.Tensor
+    cap: int
+    span: int
+    shape: tuple
+
+    @property
+    def tokens(self) -> int:
+        return self.x.shape[0] * self.x.shape[1]
+
+    def counts(self) -> torch.Tensor:
+        """Routes to each expert per routing rank and batch row, [k, b, e]."""
+        return self.onehot.sum(1).transpose(0, 1)
+
+    def stats(self) -> tuple:
+        """(routes to each expert, summed router probability of each), [e]
+        each in fp32: the load-balancing loss's sums over these tokens."""
+        return self.onehot.float().sum((0, 1, 2)), self.probs.sum((0, 1))
+
+
 class MoE(nn.Module):
     """Mixture-of-experts SwiGLU FFN with GShard capacity dispatch, the
     counterpart of the JAX model's ``MoE``; ``forward`` returns the output
@@ -404,8 +471,20 @@ class MoE(nn.Module):
     all-to-all before the combine; the gather routing then falls back to
     the einsums, as in the JAX layer. Capacity is per batch row, so
     splitting the batch drops the same tokens. The load-balancing loss is
-    formed from statistics summed over every data rank: the global
-    batch's, as the JAX layer's under ``jit``.
+    formed from statistics summed over every data and sp rank: the global
+    batch's over the whole sequence, as the JAX layer's under ``jit``.
+
+    Over ``sp`` (``layout.sp_size`` ranks, each with its piece of the
+    sequence) the routing, the capacity and the dropped tokens are those of
+    the whole sequence (:func:`routing_groups`). Where a routing group
+    spans several ranks, they exchange their route counts
+    (``parallel/experts.sequence_counts``), from which each finds where its
+    tokens' slots start (:func:`slot_offsets`). Every slot is then filled
+    by one token of one rank, and an empty slot's SwiGLU output is 0, so
+    each rank runs the experts on its own kept routes alone, compacted
+    into as many slots as it needs (:meth:`assign`), and no activation
+    crosses ``sp``. ``forward`` is :meth:`route`, the counts' exchange,
+    :meth:`assign` and :meth:`aux_loss` in turn.
     """
 
     def __init__(self, cfg: LlamaConfig, device=None):
@@ -425,44 +504,72 @@ class MoE(nn.Module):
         self.layout = ep.ExpertLayout()
 
     def forward(self, x):
+        layout = self.layout
+        routing = self.route(x)
+        counts, rank = routing.counts()[None], 0
+        if routing.span > 1:
+            # The routing group spans several sp ranks: the slots that its
+            # earlier positions took, from every rank's counts.
+            counts, rank = ep.sequence_counts(counts[0], layout), layout.sp_rank
+        y = self.assign(routing, slot_offsets(counts, rank, routing.span))
+        f_sum, p_sum = routing.stats()
+        aux = self.aux_loss(ep.data_sum(f_sum, layout), ep.data_sum(p_sum, layout),
+                            routing.tokens * layout.data_size)
+        return y, aux
+
+    def route(self, x) -> "Routing":
+        """The router's choices for ``x`` (this rank's piece of the
+        sequence, when ``layout.sp_size`` ranks split it), in the routing
+        groups of :func:`routing_groups`."""
         cfg = self.cfg
         b0, s0, d = x.shape
-        group = cfg.moe_group_size
-        if group and s0 > group and s0 % group == 0:
-            x = x.reshape(b0 * (s0 // group), group, d)
-        b, s, _ = x.shape
+        length, span = routing_groups(cfg, s0, self.layout.sp_size)
+        if length < s0:
+            x = x.reshape(b0 * (s0 // length), length, d)
         e, k = cfg.n_experts, cfg.experts_per_token
-        cap = max(1, int(cfg.capacity_factor * s * k / e))
-
+        cap = max(1, int(cfg.capacity_factor * length * k / e))
         probs = torch.softmax(self.router(x.float()), dim=-1)  # [b, s, e] fp32
         gate, idx = torch.topk(probs, k)  # [b, s, k], descending as lax.top_k
         gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+        return Routing(x, probs, gate, idx, F.one_hot(idx, e), cap, span, (b0, s0, d))
 
+    def assign(self, routing: "Routing", offsets) -> torch.Tensor:
+        """The layer's output [b0, s0, d] for ``routing``, each routing
+        rank's slots starting at ``offsets`` ([k, b, e], from
+        :func:`slot_offsets`).
+
+        A route is kept where its slot in the whole group is below the
+        capacity. The kept routes of this rank then take the slots of its
+        own, rank-major: routing rank j's after the kept routes of the
+        routing ranks below j. Within one rank's group this is the group's
+        own slot; where the group spans several sp ranks, the experts run
+        on as many slots as this rank keeps routes to one expert at most
+        (``experts.slot_count``), not on the group's capacity."""
+        x, onehot, cap = routing.x, routing.onehot, routing.cap
         # Capacity, rank-major, in integers (a bf16 count is exact only to
-        # 256): per rank, each token's slot in its chosen expert and
-        # whether it won one. Never [b, s, k, e, cap].
-        onehot = F.one_hot(idx, e)  # [b, s, k, e]
-        taken = torch.zeros(b, 1, e, dtype=onehot.dtype, device=x.device)
+        # 256): per routing rank, each token's slot in its chosen expert
+        # and whether it won one. Never [b, s, k, e, cap].
+        kept = (cap - offsets).clamp(min=0).minimum(routing.counts())  # [k, b, e]
+        start = kept.cumsum(0) - kept
+        slots = cap if routing.span == 1 else ep.slot_count(kept.sum(0), self.layout)
         pos, keep = [], []
-        for j in range(k):
+        for j in range(onehot.shape[2]):
             oh = onehot[:, :, j]
-            p = oh.cumsum(1) - oh + taken
-            pos.append(p)
-            keep.append((p < cap) & (oh > 0))
-            taken = taken + oh.sum(1, keepdim=True)
-        gather = cfg.moe_impl == "gather" and self.layout.axis is None
+            p = oh.cumsum(1) - oh
+            pos.append(p + start[j][:, None, :])
+            keep.append((p < kept[j][:, None, :]) & (oh > 0))
+        gather = self.cfg.moe_impl == "gather" and self.layout.axis is None
         route = self._gather if gather else self._einsum
-        y = route(x, gate, idx, pos, keep, cap)
+        y = route(x, routing.gate, routing.idx, pos, keep, slots)
+        return y.to(x.dtype).reshape(routing.shape)
 
-        # Switch load-balance loss e * sum(f * P): f the share of routes to
-        # each expert, P its mean probability, over the grouped shapes of
-        # every data rank's batch.
-        layout = self.layout
-        tokens = b * s * layout.data_size
-        f_frac = ep.data_sum(onehot.float().sum((0, 1, 2)), layout) / (tokens * k)
-        p_mean = ep.data_sum(probs.sum((0, 1)), layout) / tokens
-        aux = e * (f_frac * p_mean).sum() * cfg.router_aux_weight
-        return y.to(x.dtype).reshape(b0, s0, d), aux
+    def aux_loss(self, f_sum, p_sum, tokens: int) -> torch.Tensor:
+        """Switch load-balance loss e * sum(f * P): f the share of routes to
+        each expert, P its mean probability, from the sums of
+        :meth:`Routing.stats` over ``tokens`` positions (every data and sp
+        rank's)."""
+        e, k = self.cfg.n_experts, self.cfg.experts_per_token
+        return e * ((f_sum / (tokens * k)) * (p_sum / tokens)).sum() * self.cfg.router_aux_weight
 
     def _experts(self, h):
         """The SwiGLU experts on their slots: [e, b, cap, d] -> same, for
@@ -599,7 +706,11 @@ class Llama(nn.Module):
     the same loss). ``pp_group`` (set by ``parallel/sharding.shard_model``)
     is the pipeline's group; without it a pipelined model cannot run.
     ``sp_rank``/``sp_size`` (also set there) place the local sequence at
-    positions ``[sp_rank * s, (sp_rank + 1) * s)``."""
+    positions ``[sp_rank * s, (sp_rank + 1) * s)``. ``tp_mesh`` (also set
+    there, over ``tp`` above 1) splits the embedding's d and the head's
+    vocab over tp: the forward gathers the embedding's d, and takes the
+    loss by ``vocab_parallel_cross_entropy`` (the logits, asked for, are
+    gathered over the vocabulary once at the end)."""
 
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None, pp: int = 1, stage: int = 0):
@@ -619,6 +730,7 @@ class Llama(nn.Module):
         self.stages, self.stage = pp, stage
         self.pp_group = None
         self.sp_rank, self.sp_size = 0, 1
+        self.tp_mesh = None
         first, last = stage == 0, stage == pp - 1
         self.tok_embeddings = nn.Embedding(
             config.vocab_size, config.dim, device=device,
@@ -682,8 +794,10 @@ class Llama(nn.Module):
         """Logits [b, s, vocab] fp32; with ``targets``, the mean next-token
         loss plus the MoE layers' load-balancing losses (the loss the JAX
         package's ``loss_fn`` forms), its head applied per sequence chunk
-        (``chunked_cross_entropy``) inside this forward, where a sharded
-        head is gathered; with ``return_hidden``, the pre-logits hidden
+        (``chunked_cross_entropy``) inside this forward, where FSDP2 has
+        gathered a sharded head (over ``tp``, each rank's rows of it:
+        ``vocab_parallel_cross_entropy``); with ``return_hidden``, the
+        pre-logits hidden
         states. ``return_aux`` returns ``(logits or hidden, aux)``, the sum
         of the layers' load-balancing losses (None for a dense model).
 
@@ -697,7 +811,7 @@ class Llama(nn.Module):
         cos, sin = gather_rope(cfg, positions)
         if self.stages > 1:
             return self._pipelined(tokens, targets, cos, sin, return_hidden, return_aux)
-        x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
+        x = self._embed(tokens)
         aux = None
         for layer in self.layers:
             x, layer_aux = layer(x, cos, sin)
@@ -705,13 +819,40 @@ class Llama(nn.Module):
                 aux = layer_aux if aux is None else aux + layer_aux
         return self._head(x, targets, return_hidden, return_aux, aux)
 
+    def _gather_tp(self, local: torch.Tensor) -> torch.Tensor:
+        """``local``'s last dim gathered over ``tp_mesh``; its gradient,
+        which every tp rank holds whole, split back to each rank's part."""
+        spread = DTensor.from_local(local, self.tp_mesh, [Shard(local.dim() - 1)],
+                                    run_check=False)
+        return spread.redistribute(self.tp_mesh, [Replicate()]).to_local()
+
+    def _embed(self, tokens):
+        weight = self.tok_embeddings.weight
+        if self.tp_mesh is None:
+            return F.embedding(tokens, weight.to(self.config.dtype))
+        # Each tp rank looks up its part of d; one gather makes the row.
+        local = weight.to_local() if isinstance(weight, DTensor) else weight
+        return self._gather_tp(F.embedding(tokens, local.to(self.config.dtype)))
+
     def _head(self, x, targets, return_hidden, return_aux, aux=None):
         x = self.norm(x)
+        weight = self.output.weight
+        if self.tp_mesh is not None and isinstance(weight, DTensor):
+            weight = weight.to_local()  # this rank's rows of the vocabulary
         if targets is not None:
             # The [b, s, vocab] fp32 logits never exist whole.
-            loss = chunked_cross_entropy(x, self.output.weight.to(x.dtype), targets)
+            if self.tp_mesh is None:
+                loss = chunked_cross_entropy(x, weight.to(x.dtype), targets)
+            else:
+                loss = vocab_parallel_cross_entropy(x, weight.to(x.dtype), targets,
+                                                    VocabGroup(self.tp_mesh.get_group()))
             return loss if aux is None else loss + aux
-        out = x if return_hidden else self.output(x).float()
+        if return_hidden:
+            out = x
+        elif self.tp_mesh is None:
+            out = self.output(x).float()
+        else:
+            out = self._gather_tp(linear(x, weight.to(x.dtype))).float()
         return (out, aux) if return_aux else out
 
     def _pipelined(self, tokens, targets, cos, sin, return_hidden, return_aux):
@@ -721,7 +862,7 @@ class Llama(nn.Module):
                                "over a mesh with pp (parallel/sharding.shard_model)")
         b, s = tokens.shape
         if self.stage == 0:
-            x = F.embedding(tokens, self.tok_embeddings.weight.to(cfg.dtype))
+            x = self._embed(tokens)
         else:
             x = torch.zeros(b, s, cfg.dim, dtype=cfg.dtype, device=tokens.device)
         x = pipeline_apply(self._stage, x, cos, sin,

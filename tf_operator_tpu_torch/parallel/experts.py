@@ -20,9 +20,18 @@ combine einsums constrained to ``moe_expert_axes``).
   split over ``tp``, the input's gradient and the ``w2`` product's
   partial sums are summed over ``tp`` (Megatron's f and g).
 - :func:`data_sum`: the load-balancing loss's statistics summed over every
-  data rank, so that the aux loss is the global batch's, as under the JAX
-  package's ``jit``; its gradient is summed too, since each rank's loss
-  carries the whole aux term.
+  data rank and every ``sp`` rank, so that the aux loss is the global
+  batch's over the whole sequence, as under the JAX package's ``jit``; its
+  gradient is summed too, since each rank's loss carries the whole aux
+  term.
+- :func:`sequence_counts`: over ``sp``, each rank's per-expert route
+  counts ``[k, b, e]`` (integers, no gradient) gathered from every rank of
+  its ``sp`` group, from which a rank finds where its tokens' capacity
+  slots start when a routing group spans several ranks
+  (``models/llama.slot_offsets``). No activation crosses ``sp``.
+- :func:`slot_count`: the slots a rank's experts run on where a routing
+  group spans sp ranks: its own kept routes to one expert at most, the
+  same over the all-to-all's group.
 
 ``COUNTS["all_to_all"]`` counts the all-to-alls run (forward, a remat
 replay's forward and backward each count one), as ``ops/build.LAUNCHES``
@@ -55,11 +64,14 @@ class ExpertLayout:
     group: Any = None  # its process group: the all-to-all's
     size: int = 1  # its size, E
     tp_group: Any = None  # the f split's group, tp above 1
-    data_group: Any = None  # every data rank (the aux loss's statistics)
+    data_group: Any = None  # every data and sp rank (the aux loss's statistics)
     data_size: int = 1
     replica_group: Any = None  # ranks with the same expert block and other data
     grad_scale: float = 1.0  # the expert gradient's factor besides FSDP2's
     fsdp_d: bool = False  # each expert's d sharded over fsdp by an FSDP2 group
+    sp_group: Any = None  # the ring's group: the ranks that split the sequence
+    sp_rank: int = 0  # this rank's piece of the sequence
+    sp_size: int = 1
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -168,3 +180,23 @@ def reduce_from_tp(x: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
 
 def data_sum(x: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
     return x if layout.data_group is None else _SumBoth.apply(x, layout.data_group)
+
+
+def sequence_counts(counts: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
+    """Every ``sp`` rank's ``counts`` ([k, b, e] integers), stacked in rank
+    order: [sp, k, b, e]. Counts carry no gradient."""
+    gathered = [torch.empty_like(counts) for _ in range(layout.sp_size)]
+    dist.all_gather(gathered, counts.contiguous(), group=layout.sp_group)
+    return torch.stack(gathered)
+
+
+def slot_count(kept: torch.Tensor, layout: ExpertLayout) -> int:
+    """The slots an expert needs on this rank, from its kept routes per
+    batch row and expert (``kept`` [b, e]): their most, the same over the
+    all-to-all's group, whose ranks exchange equal blocks. It reads the
+    count on the host: a routing group across sp ranks has data-dependent
+    slots."""
+    most = kept.max().reshape(1)
+    if layout.group is not None:
+        dist.all_reduce(most, op=dist.ReduceOp.MAX, group=layout.group)
+    return max(1, int(most.item()))

@@ -24,10 +24,12 @@ over the stage's own submesh, never across ``pp``: a DeviceMesh's dim
 names the ranks that share this rank's other coordinates, its stage among
 them.
 
-The embedding and the output head are sharded over fsdp only, replicated
-over tp, where the JAX rules also put their d (embedding) or vocab (head)
-dim over tp: a difference of layout, not of results. Vocab-parallel loss
-comes later.
+Over ``tp`` the embedding's d and the head's vocab are split as the JAX
+rules split them (``(fsdp, tp)`` on both), and FSDP2 shards both over
+``fsdp`` too. The model's forward reads both weights itself
+(``Llama.tp_mesh``): the embedding gathers its d over tp, and the loss is
+the vocab-parallel chunked cross entropy (``ops/cross_entropy.py``), so
+no rank ever holds the whole head or the whole vocabulary's logits.
 
 An MoE layer's fp32 router gets a ``fully_shard`` group of its own, since
 FSDP2 needs one original dtype in a group and the block's other
@@ -48,9 +50,9 @@ expert rules (``resolve_expert_axis``, ``moe_expert_axes``):
 - with no resolved axis they shard with the block, as before.
 
 A BERT model is not sharded: its step is data parallel (replicated
-parameters, gradients averaged over the data axes: ``data_parallel_group``
-and ``train_step.make_train_step``'s ``replica_group``), as the JAX
-example's is. BERT over ``tp`` is refused until ported.
+parameters, gradients averaged over the whole world whatever axes the
+mesh declares: ``data_parallel_group`` and ``train_step.make_train_step``'s
+``replica_group``), as the JAX example's is.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from __future__ import annotations
 import re
 from typing import Optional
 
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import fully_shard
@@ -80,7 +83,9 @@ _REPLICATE_AXES = ("slice", "dp")
 _PARAM_RULES = [
     (r"\.(wq|wk|wv|w1|w3)\.weight$", "colwise"),
     (r"\.(wo|w2)\.weight$", "rowwise"),
-    (r"^(tok_embeddings|output)\.weight$", None),  # fsdp only (see above)
+    # The embedding [vocab, d] and the head [vocab, d], as torch's
+    # ColwiseParallel splits an Embedding (d) and a Linear (vocab).
+    (r"^(tok_embeddings|output)\.weight$", "colwise"),
     (r"(norm|scale)", None),
 ]
 _STYLES = {"colwise": ColwiseParallel, "rowwise": RowwiseParallel}
@@ -180,26 +185,21 @@ def _fsdp_mesh(mesh: DeviceMesh, fold_ep: bool = True) -> DeviceMesh:
 
 
 def check_shardable(config, axes: dict) -> None:
-    """Refuse a layout the port cannot shard ``config`` over: a BERT model
-    over any axis but the data axes (not ported yet); over ``sp``, a model
-    whose attention is not the ring (the sequence is never gathered
-    silently) or an MoE model (not ported yet)."""
+    """Refuse a layout the port cannot shard ``config`` over: over ``sp``,
+    a model whose attention is not the ring (the sequence is never
+    gathered silently); over ``tp``, a vocabulary that the tp ranks cannot
+    split evenly (the head's rows). A BERT model trains on any mesh: its
+    step is data parallel over the whole world (``data_parallel_group``)."""
     if isinstance(config, BertConfig):
-        other = {a: n for a, n in axes.items() if a not in DATA_AXES and n > 1}
-        if other:
-            raise NotImplementedError(
-                f"BERT over mesh {axes}: BERT's step is data parallel; BERT over {other} is "
-                "not ported yet (ROADMAP Queue 1 item 3c, BERT over tp)")
         return
-    if axes.get("sp", 1) > 1:
-        if config.attention_impl != "ring":
-            raise ValueError(
-                f"attention_impl={config.attention_impl!r} over mesh {axes}: each sp rank "
-                "holds a piece of the sequence; over sp the model runs attention_impl='ring'")
-        if config.n_experts:
-            raise NotImplementedError(
-                f"MoE over mesh {axes}: MoE over sp is not ported yet (ROADMAP Queue 1 "
-                "item 7f, MoE over sp)")
+    if axes.get("sp", 1) > 1 and config.attention_impl != "ring":
+        raise ValueError(
+            f"attention_impl={config.attention_impl!r} over mesh {axes}: each sp rank "
+            "holds a piece of the sequence; over sp the model runs attention_impl='ring'")
+    tp = axes.get("tp", 1)
+    if config.vocab_size % tp:
+        raise ValueError(f"vocab_size={config.vocab_size} over tp={tp}: the head's rows "
+                         "split evenly over the tp ranks")
 
 
 # Expert weights [e, d, f] (w1, w3) and [e, f, d] (w2): the dims of f and d.
@@ -210,23 +210,32 @@ _D_DIM = {"experts_w1": 1, "experts_w3": 1, "experts_w2": 2}
 def expert_layout(mesh: DeviceMesh, n_experts: int) -> ExpertLayout:
     """The layout of an MoE layer's experts on ``mesh``. The gradient of
     the global batch's mean is the owners' sum over the expert axis,
-    summed over the other data axes, over the data size: where no FSDP2
-    group holds the experts, their gradient is scaled by ``1/data_size``
-    and summed over the other data axes; over ``ep`` with ``fsdp`` above 1
-    an FSDP2 group of their own (``fsdp_d``) averages over those, and the
-    gradient is scaled by ``1/E``."""
+    summed over the other data axes and ``sp``, over their size: where no
+    FSDP2 group holds the experts, their gradient is scaled by
+    ``1/data_size`` and summed over the other data axes and ``sp``; over
+    ``ep`` with ``fsdp`` above 1 an FSDP2 group of their own (``fsdp_d``,
+    over ``fsdp`` and ``sp``) averages over those, and the gradient is
+    scaled by ``1/E``. Over ``sp`` the layer also gets the ring's group,
+    over which its ranks exchange their route counts."""
     axes = mesh_axes(mesh)
     axis = resolve_expert_axis(axes, n_experts)
     data = _present(mesh, DATA_AXES)
-    data_group, data_size = _group(mesh, data)
+    # Each sp rank holds other tokens of the same rows: the statistics and
+    # the gradients sum over sp as over the data axes.
+    sp = axes.get("sp", 1)
+    seq = dict(sp_group=mesh["sp"].get_group(), sp_rank=mesh.get_local_rank("sp"),
+               sp_size=sp) if sp > 1 else {}
+    with_sp = data + (("sp",) if sp > 1 else ())
+    data_group, data_size = _group(mesh, with_sp)
     tp_group = _group(mesh, ("tp",))[0] if axes.get("tp", 1) > 1 else None
     if axis is None:
-        return ExpertLayout(tp_group=tp_group, data_group=data_group, data_size=data_size)
+        return ExpertLayout(tp_group=tp_group, data_group=data_group, data_size=data_size,
+                            **seq)
     fsdp_d = axis == "ep" and axes.get("fsdp", 1) > 1
-    replicas = None if fsdp_d else _group(mesh, tuple(a for a in data if a != axis))[0]
+    replicas = None if fsdp_d else _group(mesh, tuple(a for a in with_sp if a != axis))[0]
     return ExpertLayout(axis, mesh[axis].get_group(), axes[axis], tp_group, data_group,
                         data_size, replicas, 1.0 / (axes[axis] if fsdp_d else data_size),
-                        fsdp_d)
+                        fsdp_d, **seq)
 
 
 def place_experts(moe: nn.Module, mesh: DeviceMesh) -> Optional[set]:
@@ -272,17 +281,31 @@ def _sequence_and_stages(model: nn.Module, mesh: DeviceMesh) -> None:
             block.attention.sp_group = mesh["sp"].get_group()
 
 
+def _vocab_parallel(model: nn.Module, mesh: DeviceMesh) -> None:
+    """Split the embedding's d (dim 1) and the head's vocab (dim 0) over
+    ``tp``: DTensors that ``Llama.forward`` reads itself, no module hooks
+    (a pipeline stage holds either, or neither)."""
+    tp = mesh["tp"]
+    for module, dim in ((model.tok_embeddings, 1), (model.output, 0)):
+        if module is not None:
+            module.weight = nn.Parameter(distribute_tensor(module.weight.data, tp, [Shard(dim)],
+                                                           src_data_rank=None))
+    model.tp_mesh = tp
+
+
 def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Shard ``model`` (a Llama, or one pipeline stage of it, before its
     storage exists: on the meta device) over ``mesh`` in place: its ring
     and pipeline groups, tensor-parallel plans on each block over ``tp``
-    when it is above 1, then FSDP2 on each MoE router, the experts placed
-    (``expert_layout``), FSDP2 on each block and the root."""
+    when it is above 1 and the embedding and head split there, then FSDP2
+    on each MoE router, the experts placed (``expert_layout``), FSDP2 on
+    each block and the root."""
     check_shardable(model.config, mesh_axes(mesh))
     _sequence_and_stages(model, mesh)
     if "tp" in mesh.mesh_dim_names and mesh["tp"].size() > 1:
         for block in model.blocks():
             parallelize_module(block, mesh["tp"], _tp_plan(block))
+        _vocab_parallel(model, mesh)
     fsdp = _fsdp_mesh(mesh)
     for block in model.blocks():
         ignored = None
@@ -295,7 +318,9 @@ def shard_model(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
 
 
 def data_parallel_group(config, mesh: DeviceMesh):
-    """(the process group over ``mesh``'s data axes, its size) for a model
-    whose step is data parallel (BERT's): refused on any other axis."""
+    """(the process group a data-parallel step averages over, its size) for
+    a model whose step is data parallel (BERT's): the whole world, whatever
+    axes ``mesh`` declares, as the JAX example shards its batch over every
+    mesh axis."""
     check_shardable(config, mesh_axes(mesh))
-    return _group(mesh, _present(mesh, DATA_AXES))
+    return dist.group.WORLD, dist.get_world_size()

@@ -25,10 +25,11 @@ the flash kernels; the chunked loss of ``train_step.loss_fn`` with no mask
 
 Rendezvous goes through ``runtime/gpu_init``. Over several processes the
 step is the JAX script's data-parallel one: parameters replicated (every
-process draws them from the same seed), the batch sharded over the mesh's
-data axes (``parallel/sharding.data_parallel_group``; BERT over ``tp`` is
-refused), gradients averaged over them, and one loss over the global
-batch: each process's masked sum over the global count of masked
+process draws them from the same seed), the batch sharded over every
+process whatever axes the mesh declares, as the JAX script shards it over
+all of its mesh's axes (``parallel/sharding.data_parallel_group``: over
+``{"fsdp": 2, "tp": 2}`` too, four data replicas), gradients averaged over
+them, and one loss over the global batch: each process's masked sum over the global count of masked
 positions, times the process count, so that the average is the global
 mean whatever each process's count.
 """
