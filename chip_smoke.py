@@ -150,8 +150,8 @@ Phases (any failure raises and the script exits non-zero):
       256 (a 2-step warm-up run, then 7 steps, the window after the
       first): finite losses, step time, images/s, MFU (3 x the forward's
       convolution and head FLOPs) and peak memory; the host's draw of one
-      batch, the step on a resident batch, and as a yardstick that step
-      under torch.compile; mnist_train with the manifest's arguments
+      batch and the step on a resident batch; mnist_train with the
+      manifest's arguments
       (--steps=600 --batch=256 --target-accuracy=0.95) must exit 0;
   (q) the per-node launcher on one card: ``python -m tf_operator_tpu_torch.
       runtime.launch --nproc-per-node 1 -- python -m tf_operator_tpu_torch.
@@ -186,11 +186,22 @@ Phases (any failure raises and the script exits non-zero):
       router and the experts; llama-400m's loss at [8, 2048] x
       32000 over 2 virtual tp shards (``cross_entropy.StackedShards``)
       against the unsharded chunked loss: the loss and its gradients in
-      the hidden state and the head; each form's forward and backward ms.
+      the hidden state and the head; each form's forward and backward ms;
+  (t) an elastic job on one card (:func:`phase_t`): llama-400m with phase
+      e's arguments from phase g's token file, ELASTIC_STEPS steps, run
+      once uninterrupted in this process and once as the pod of an
+      elastic 1-node x 1-card ``gpu_job`` through the launcher; after its
+      first durable step ``scale()`` to 2 nodes deletes the pod and, 2
+      cards not fitting ``--capacity nvidia.com/gpu@h100=1``, leaves the
+      job queued; ``scale()`` back to 1 starts it again, and it resumes
+      from storage with the uninterrupted run's losses (LOSS_TOL) at phase
+      e's launches a step; the restore's seconds and split, and the
+      seconds from the scale back to the first resumed step.
 
-Phases e-m each reset the launch counters just before their runs and read
-them just after; the launched runs of q and r count in their own
-processes and report the counts in their ``[llama] done`` summaries.
+Phases e-m and t's in-process run each reset the launch counters just
+before their runs and read them just after; the launched runs of q, r and
+t count in their own processes and report the counts in their ``[llama]
+done`` summaries.
 The last lines are the nvidia-smi line, one JSON line of
 per-kernel results (launches from phase e, from phase k's einsum run for
 the entries named "...[moe-125m]", timed at its shapes, and from phase l's
@@ -1441,10 +1452,11 @@ def phase_p(peak) -> None:
     global batch 256 on this card (a 2-step warm-up run, then a run whose
     window holds its steps after the first): step time, images/s, MFU
     (3 x the forward FLOPs of the convolutions and the head a image) and
-    peak memory, the host's draw of one batch, the same step on a batch
-    resident on the card and, as a yardstick only, that step with
-    torch.compile of the port's model; mnist_train with the manifest's
-    arguments reaches its target."""
+    peak memory, the host's draw of one batch and the same step on a
+    batch resident on the card; mnist_train with the manifest's
+    arguments reaches its target. (The step under torch.compile, a
+    yardstick that took 233 s to compile, is no longer run here, to keep
+    the run within its time; PERF.md keeps its last reading.)"""
     import contextlib
     import io
 
@@ -1490,13 +1502,7 @@ def phase_p(peak) -> None:
     log(f"[p] the host draws one batch in {draw_s:.4f} s (numpy, the JAX script's draw); the "
         f"step on a resident batch {resident_ms:.2f} ms (CUDA events over 5 steps): images/s "
         f"{resident_ips:.1f}, MFU {resident_ips * flops / (peak.bf16_tflops * 1e12):.4f}")
-    t0 = time.perf_counter()
-    compiled_fn = resnet_train.make_train_step(torch.compile(model), optimizer)
-    compiled_ms = time_ms(lambda: compiled_fn(images, labels), iters=5, warmup=3, repeats=1)
-    log(f"[p] yardstick, not used by the port: the same step with torch.compile of the "
-        f"model {compiled_ms:.2f} ms ({resident_ms / compiled_ms:.3f}x the port's; compiled "
-        f"and warmed in {time.perf_counter() - t0:.1f} s)")
-    del out, model, optimizer, step_fn, compiled_fn, images, labels
+    del out, model, optimizer, step_fn, images, labels
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2019,6 +2025,156 @@ def phase_s() -> None:
         f"{split_ms:.4f}; phase s took {time.perf_counter() - t0:.1f} s")
 
 
+# Phase (t): an elastic job on one card. ELASTIC_EVERY is phase r's
+# cadence (a persist of llama-400m's state takes about 5 s); ELASTIC_STEPS
+# is enough that the first durable step comes while the world still trains.
+ELASTIC_STEPS = 60
+ELASTIC_EVERY = 20
+DELETE_GRACE = 2.0  # the process backend's SIGTERM grace before its SIGKILL
+
+
+def elastic_env(port: int, beat: str) -> dict:
+    """The env of the pod of an elastic ``gpu_job`` of llama-400m on one
+    node of one card, ``elastic=(1, 2)``, as the operator renders it at one
+    node (:func:`node_env`): at its start, and again after ``scale()`` to 2
+    nodes and back to 1 (``tests/test_torch_elastic.py`` pins both), with
+    the heartbeat file the process backend gives a pod whose job sets a
+    progress deadline."""
+    return {**os.environ, **node_env(1, 0, 1, port), "TPU_HEARTBEAT_LEASE": "elastic-worker-0-hb",
+            "TPU_HEARTBEAT_FILE": beat, "TPU_HEARTBEAT_INTERVAL_SECONDS": "1"}
+
+
+def delete_pods(procs: list) -> float:
+    """What the operator's process backend does to the pods of a stale
+    world, deleted in one batch: SIGTERM to each pod's process group,
+    SIGKILL to those left after the grace; the seconds it took."""
+    t0 = time.perf_counter()
+    for sig, wait in ((signal.SIGTERM, DELETE_GRACE), (signal.SIGKILL, 60.0)):
+        for proc in procs:
+            try:
+                os.killpg(proc.pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + wait
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        if all(p.poll() is not None for p in procs):
+            break
+    return time.perf_counter() - t0
+
+
+def durable_steps(stream: str) -> list:
+    """The steps of a DCP stream whose save finished (``.metadata``, which
+    the coordinator writes after every rank's data); none before the
+    stream's first save."""
+    try:
+        names = os.listdir(stream)
+    except FileNotFoundError:
+        return []
+    return sorted(int(d) for d in names if os.path.exists(os.path.join(stream, d, ".metadata")))
+
+
+def phase_t(build, peak, main: dict, timeout: float = 600.0) -> None:
+    """The resize that one card holds, of an elastic 1-node x 1-card job
+    of llama-400m (phase e's arguments, phase g's seeded token file,
+    ELASTIC_STEPS steps, a checkpoint every ELASTIC_EVERY): U, the
+    uninterrupted run, in this process; then the job's pod through the
+    per-node launcher under :func:`elastic_env`. After its first durable
+    step (the beat file, as the operator's shrink gate reads it),
+    ``scale()`` to 2 nodes: the operator deletes the pod (:func:`delete_pods`)
+    and, under ``--capacity nvidia.com/gpu@h100=1``, the 2-node job waits at
+    the gate, so nothing runs; ``scale()`` back to 1 admits it, and the pod
+    starts again with the same env. It must resume from storage at or after
+    the durable step, with U's losses from there (LOSS_TOL) at phase e's
+    launches a step. Prints the restore's seconds and split and the
+    seconds from the scale back to the first resumed step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = seeded_tokens(tmp)
+        args = [*MAIN_ARGS, "--steps", str(ELASTIC_STEPS), "--data", path,
+                "--data-dtype", "uint16"]
+        unresized = train_run(build, peak, "t", args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        command = launch_argv(1, [
+            sys.executable, "-m", "tf_operator_tpu_torch.train.llama_train", *args,
+            "--checkpoint-every", str(ELASTIC_EVERY), "--checkpoint-dir",
+            os.path.join(tmp, "ckpt")])
+        port, logs, procs = free_port(), {}, []
+
+        def start(tag: str):
+            logs[tag] = os.path.join(tmp, f"{tag}.log")
+            with open(logs[tag], "w") as out:
+                procs.append(subprocess.Popen(
+                    command, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                    env=elastic_env(port, os.path.join(tmp, f"{tag}.beat.json")),
+                    start_new_session=True))
+            return procs[-1]
+
+        try:
+            t0 = time.perf_counter()
+            first, durable = start("first"), None
+            while first.poll() is None and time.perf_counter() - t0 < timeout:
+                durable = (read_json(os.path.join(tmp, "first.beat.json")) or {}).get(
+                    "checkpoint_step")
+                if durable is not None:
+                    break
+                time.sleep(0.05)
+            running = first.poll() is None
+            teardown = delete_pods([first])
+            log(f"[t] 1 node x 1 card: durable step {durable} on its beat "
+                f"{time.perf_counter() - t0:.1f} s after its start; scale() to 2 nodes: the pod "
+                f"deleted in {teardown:.3f} s (exit {first.returncode}); 2 cards do not fit "
+                f"nvidia.com/gpu@h100=1, so the job waits at the gate with no pod")
+            if durable is None or not running:
+                raise AssertionError(f"the first world made no durable step while it trained "
+                                     f"(exit {first.returncode}):\n"
+                                     f"{open(logs['first']).read()[-3000:]}")
+            t1 = time.perf_counter()
+            second, first_step = start("resumed"), None
+            while second.poll() is None and time.perf_counter() - t1 < timeout:
+                if first_step is None and STEP_LINE.search(open(logs["resumed"]).read()):
+                    first_step = time.perf_counter() - t1
+                time.sleep(0.05)
+            second.wait(max(timeout - (time.perf_counter() - t1), 1.0))
+            ended = time.perf_counter() - t1
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        text = open(logs["resumed"]).read()
+        runs = done_lines(text)
+        for line in text.splitlines():
+            if line.startswith(("[gpu_init]", "[llama] process", "[llama] resumed")):
+                log(f"[t] resumed| {line}")
+        if second.returncode != 0 or list(runs) != [0] or first_step is None:
+            raise AssertionError(f"the resumed world failed (exit {second.returncode}, a step "
+                                 f"seen while it ran: {first_step is not None}):\n"
+                                 f"{text[-3000:]}")
+    run = runs[0]
+    restore, k = run["restore"], run["start_step"]
+    log(f"[t] scale() back to 1 node: resumed at step {k} via {restore['path']} "
+        f"({restore['cause']}); restore {restore['seconds']:.3f} s, split {restore['split']}; "
+        f"{first_step:.1f} s from the scale back to the first resumed step, "
+        f"{ended:.1f} s to the job's end")
+    if (restore["path"], restore["cause"]) != ("storage", "ok") or not (
+            durable <= k < ELASTIC_STEPS and k % ELASTIC_EVERY == 0):
+        raise AssertionError(f"the resumed world restored {restore} at step {k}, after the "
+                             f"durable step {durable}")
+    check_losses("t", f"resumed from step {k} against the unresized run", run["losses"],
+                 unresized["losses"][k:])
+    per_step = {n: run["launches"].get(n, 0) / len(run["losses"]) for n in KERNEL_SYMBOLS}
+    want = {n: main["per_step"][n] for n in KERNEL_SYMBOLS}
+    step_s = run["window_seconds"] / max(run["window_steps"], 1)
+    log(f"[t] resumed world: {len(run['losses'])} steps, launches a step {per_step} (phase e: "
+        f"{want}); step {step_s:.4f} s, tokens/s {run['tokens_per_step'] / step_s:.1f}; peak "
+        f"{run['peak_bytes'] / 2**30:.3f} GiB; last persist {run['persist']}")
+    if per_step != want:
+        raise AssertionError(f"launches a step {per_step}, phase e {want}")
+
+
 def recovery_legs() -> None:
     """``scripts/measure_recovery_torch.py`` on the card at llama-400m's
     state, one trial a leg, its gates on; its legs' seconds printed."""
@@ -2093,6 +2249,7 @@ def main() -> int:
     phase_q(main)
     phase_r(main)
     phase_s()
+    phase_t(build, peak, main)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]

@@ -31,7 +31,9 @@ seed; then, in the N processes, the rows:
   dim after the last step (:func:`replica_mismatches`); then the
   recovery plane over the same 2 nodes (:func:`slice_local_row`): each
   node a slice-local world of N/2 ranks, slice 1 killed and restored by
-  each rank from its own peer, its losses slice 0's;
+  each rank from its own peer, its losses slice 0's; last a job resized
+  in whole nodes (:func:`elastic_row`): 2 nodes, 1 node, 2 nodes, each
+  world from the DCP checkpoint, against an unresized 2-node run;
 - moe-125m over ep=N, over fsdp=N (the expert axis is fsdp: 8 experts
   divide it) and over ep=2 x fsdp=N/2, global batch 8N: the first loss at
   ``LOSS_TOL``, the later ones at ``PARITY_TOL["loss"]``, with the share
@@ -135,13 +137,15 @@ class Plan:
     resnet: str = "resnet50"
     image: int = 224
     resnet_rows: int = 64  # a card's images
+    elastic_steps: int = 100  # the elastic row's --steps, kept by every world
+    elastic_every: int = 20  # and its checkpoint cadence
 
     @classmethod
     def for_device(cls, device: str, procs: int) -> "Plan":
         if device == "cuda":
             return cls("cuda", procs)
         return cls("cpu", procs, "llama-tiny", "moe-tiny", "bert-tiny", 32, 32, 2, 2, 64, 4,
-                   "resnet-tiny", 32, 2)
+                   "resnet-tiny", 32, 2, 120, 20)
 
 
 def log(msg: str) -> None:
@@ -580,6 +584,235 @@ def slice_local_row(plan: Plan, tmp: str, tokens: str, refs: dict) -> list:
     return fails
 
 
+ELASTIC = "[n] elastic "  # an elastic row child's line: its restore, or a step
+
+
+def start_nodes(plan: Plan, command: list, nodes: int, beat: str, tag: str, tmp: str) -> list:
+    """``nodes`` launchers of N/2 cards each, on their halves of the cards,
+    under the env the operator gives the pods of a ``gpu_job`` of
+    ``nodes`` nodes after ``JobClient.scale`` (``chip_smoke.node_env``
+    with the mesh ``scale()`` renders, ``{"slice": nodes, "fsdp": N/2}``;
+    ``tests/test_torch_elastic.py`` pins it), node 0 with the heartbeat
+    file; their output in ``tmp/<tag><node>.log``."""
+    half = plan.procs // 2
+    port = cs.free_port()
+    procs = []
+    for node in range(nodes):
+        env = {**os.environ, **cs.node_env(nodes, node, half, port,
+                                           mesh={"slice": nodes, "fsdp": half})}
+        if node == 0:
+            env.update(TPU_HEARTBEAT_LEASE=f"{tag}-worker-0-hb", TPU_HEARTBEAT_FILE=beat,
+                       TPU_HEARTBEAT_INTERVAL_SECONDS="1")
+        if plan.device == "cuda":
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(node * half + i) for i in range(half))
+        else:
+            env["OMP_NUM_THREADS"] = "1"
+        with open(os.path.join(tmp, f"{tag}{node}.log"), "w") as out:
+            procs.append(subprocess.Popen(command, cwd=ROOT, env=env, stdout=out,
+                                          stderr=subprocess.STDOUT, start_new_session=True))
+    return procs
+
+
+def elastic_world(plan: Plan, tag: str, nodes: int, tmp: str) -> dict:
+    """One world of the elastic row, from its children's ``ELASTIC``
+    lines: each rank's losses by step and its restore; rank 0's launches
+    a step, tokens/s a card (from the host clock at each step's end) and
+    the fullest card's peak memory."""
+    ranks = {}
+    for node in range(nodes):
+        with open(os.path.join(tmp, f"{tag}{node}.log")) as f:
+            for line in f.read().splitlines():
+                if line.startswith(ELASTIC):
+                    item = json.loads(line[len(ELASTIC):])
+                    rank = ranks.setdefault(item["process"], {"losses": {}, "restore": None})
+                    if "restore" in item:
+                        rank["restore"] = item["restore"]
+                    else:
+                        rank["losses"][item["step"]] = item["loss"]
+                        if item["t"] is not None:
+                            rank["last"] = item
+                            rank.setdefault("first", item)
+    world = {"nodes": nodes, "ranks": ranks, "cards": nodes * plan.procs // 2}
+    if ranks.get(0, {}).get("last"):
+        first, last = ranks[0]["first"], ranks[0]["last"]
+        steps = last["step"] - first["step"]
+        world["tokens_per_s_card"] = (steps * last["tokens_per_step"]
+                                      / max(last["t"] - first["t"], 1e-9) / world["cards"])
+        world["launches"] = {k: n / last["enqueued"] for k, n in last["launches"].items()}
+        world["peak_bytes"] = max(r["last"]["peak"] for r in ranks.values() if r.get("last"))
+    return world
+
+
+def elastic_row(plan: Plan, tmp: str, tokens: str) -> tuple:
+    """A job resized in whole nodes: llama over 2 nodes of N/2 cards
+    (``{"slice": 2, "fsdp": N/2}``) through the per-node launcher, a DCP
+    checkpoint every ``plan.elastic_every`` steps, torn down (as the
+    operator's process backend deletes a pod: SIGTERM to the launcher's
+    group, SIGKILL after ``chip_smoke.DELETE_GRACE``) once node 0's beat
+    shows a durable step newer than its restore, resumed as 1 node of N/2
+    cards (``{"slice": 1, "fsdp": N/2}``, the global batch kept: twice the
+    rows a card), torn down again, and grown back to 2 nodes, which train
+    to the end; every world with the same ``--steps``. Each world's
+    losses are held against an unresized 2-node run at ``LOSS_TOL``, each
+    resumed rank must restore from storage at the newest durable step,
+    and each world prints its launches a rank, tokens/s a card, peak
+    memory and restore seconds and split. Returns (the failures, the
+    worlds)."""
+    argv = [*llama_args(plan, plan.llama, tokens, plan.elastic_steps), "--checkpoint-every",
+            str(plan.elastic_every)]
+
+    def command(ckpt: str) -> list:
+        return cs.launch_argv(plan.procs // 2, [
+            sys.executable, os.path.abspath(__file__), "--device", plan.device, "--procs",
+            str(plan.procs), "--elastic", "--train", *argv, "--checkpoint-dir", ckpt])
+
+    root = os.path.join(tmp, "elastic")
+    procs = start_nodes(plan, command(os.path.join(tmp, "unresized-ckpt")), 2,
+                        os.path.join(tmp, "unresized.beat"), "unresized", tmp)
+    wait_all(procs)
+    fails = []
+    if any(p.returncode for p in procs):
+        fails.append(f"elastic: the unresized run exited {[p.returncode for p in procs]}")
+    unresized = elastic_world(plan, "unresized", 2, tmp)
+    worlds, stored, all_procs = [], None, []
+    try:
+        for i, nodes in enumerate((2, 1, 2)):
+            tag, beat = f"world{i}-", os.path.join(tmp, f"world{i}.beat")
+            t0 = time.monotonic()
+            procs = start_nodes(plan, command(root), nodes, beat, tag, tmp)
+            all_procs += procs
+            world = {"published": None, "resumed_at": stored}
+            if i < 2:
+                while time.monotonic() - t0 < WORKER_TIMEOUT and all(
+                        p.poll() is None for p in procs):
+                    step = (cs.read_json(beat) or {}).get("checkpoint_step")
+                    if step is not None and (stored is None or step > stored):
+                        world["published"] = step
+                        break
+                    time.sleep(0.05)
+                running = all(p.poll() is None for p in procs)
+                world["teardown_s"] = cs.delete_pods(procs)
+                stored = max(cs.durable_steps(os.path.join(root, "dcp")), default=None)
+                if world["published"] is None or not running:
+                    fails.append(f"elastic world {i} ({nodes} nodes) made no durable step "
+                                 f"while it trained (exits {[p.returncode for p in procs]})")
+            else:
+                wait_all(procs)
+                if any(p.returncode for p in procs):
+                    fails.append(f"elastic world {i} exited {[p.returncode for p in procs]}")
+            world.update(elastic_world(plan, tag, nodes, tmp), stored=stored,
+                         seconds=time.monotonic() - t0)
+            worlds.append(world)
+    finally:
+        for p in all_procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    fails += check_elastic(plan, unresized, worlds)
+    return fails, {"unresized": unresized, "worlds": worlds}
+
+
+def check_elastic(plan: Plan, unresized: dict, worlds: list) -> list:
+    """The elastic row's failures; prints each world's line."""
+    fails = []
+    ref = unresized["ranks"].get(0, {}).get("losses", {})
+    cards = plan.procs
+    log(f"[n] elastic: unresized 2 nodes x {cards // 2}: {len(ref)} losses; tokens/s a card "
+        f"{unresized.get('tokens_per_s_card', 0):.1f}; peak "
+        f"{unresized.get('peak_bytes', 0) / 1e9:.3f} GB; launches a step a rank "
+        f"{unresized.get('launches')}")
+    if sorted(ref) != list(range(plan.elastic_steps)):
+        fails.append(f"elastic: the unresized run gave the losses of steps {sorted(ref)}")
+    from tf_operator_tpu_torch.models import llama
+
+    want = cs.expected_launches("dots", llama.CONFIGS[plan.llama].n_layers)
+    for i, w in enumerate(worlds):
+        what = f"elastic world {i}: {w['nodes']} node(s) x {cards // 2} (mesh slice={w['nodes']})"
+        ranks = w["ranks"]
+        if sorted(ranks) != list(range(w["cards"])) or not all(r["losses"] for r in ranks.values()):
+            fails.append(f"{what}: ranks {sorted(ranks)} printed steps")
+            continue
+        worst = 0.0
+        for r in ranks.values():
+            common = sorted(set(r["losses"]) & set(ref))
+            if len(common) != len(r["losses"]):
+                fails.append(f"{what}: steps {sorted(r['losses'])} outside the unresized run's")
+            worst = max([worst] + [cs.rel(r["losses"][k], ref[k]) for k in common])
+        steps = sorted(ranks[0]["losses"])
+        restores = [r["restore"] for r in ranks.values()]
+        end = (f"durable step on its beat {w['published']}, storage's newest after its "
+               f"teardown {w['stored']} (torn down in {w['teardown_s']:.3f} s)"
+               if "teardown_s" in w else f"{w['seconds']:.1f} s to the end")
+        log(f"[n] {what}: steps {steps[0]}-{steps[-1]} against the unresized run: worst rel "
+            f"{worst:.3e} (tol {cs.LOSS_TOL}); {end}; tokens/s a card "
+            f"{w.get('tokens_per_s_card', 0):.1f}; peak {w.get('peak_bytes', 0) / 1e9:.3f} GB; "
+            f"launches a step a rank {w.get('launches')}")
+        if worst > cs.LOSS_TOL:
+            fails.append(f"{what}: losses against the unresized run, worst rel {worst}")
+        if i == 0:
+            if any(restores) or steps[0] != 0:
+                fails.append(f"{what}: the first world restored {restores}")
+        else:
+            for rank, x in sorted(ranks.items()):
+                log(f"[n] {what}: rank {rank} restore {x['restore']}")
+            if any(x is None or (x["path"], x["cause"], x["step"]) != ("storage", "ok",
+                                                                       w["resumed_at"])
+                   for x in restores) or steps[0] != w["resumed_at"]:
+                fails.append(f"{what}: restores {restores} and first step {steps[0]}, the "
+                             f"newest durable step {w['resumed_at']}")
+        if plan.device == "cuda" and {k: w["launches"].get(k, 0) for k in want} != want:
+            fails.append(f"{what}: launches a step {w['launches']}, the layout implies {want}")
+    last = worlds[-1]["ranks"].get(0, {}).get("losses", {}) if worlds else {}
+    if max(last, default=None) != plan.elastic_steps - 1:
+        fails.append(f"elastic: the grown world ended at step {max(last, default=None)}")
+    return fails
+
+
+def elastic_main(plan: Plan, argv: list) -> int:
+    """A child of the elastic row: what ``llama_train.main`` does, printing
+    its restore and, one step late (so that no step waits for the host's
+    read), each step's loss, the host clock at its end, the launches
+    enqueued so far and the peak memory: a world the resize tears down
+    prints no done line."""
+    import torch.distributed as dist
+
+    fp32_on_cpu(plan)
+    from tf_operator_tpu_torch.ops import build
+    from tf_operator_tpu_torch.train import llama_train
+
+    args = llama_train.parse_args(argv)
+    s = llama_train.setup(args)
+    rank = dist.get_rank()
+    if s.restore is not None and s.restore.step is not None:
+        r = s.restore
+        print(ELASTIC + json.dumps({"process": rank, "restore": {
+            "path": r.path, "cause": r.cause, "step": r.step, "seconds": r.seconds,
+            "split": r.split}}), flush=True)
+    inner, start, pending = s.step_fn, s.state.step, []
+
+    def step_fn(state, batch):
+        step = state.step
+        state, loss = inner(state, batch)
+        if pending:
+            k, previous = pending.pop()
+            print(ELASTIC + json.dumps({
+                "process": rank, "step": k, "loss": previous.item(), "t": time.perf_counter(),
+                "enqueued": step + 1 - start, "tokens_per_step": args.batch * args.seq,
+                "launches": {n: c for n, c in build.LAUNCHES.items() if c},
+                "peak": torch.cuda.max_memory_allocated() if plan.device == "cuda" else 0}),
+                flush=True)
+        pending.append((step, loss.detach()))
+        return state, loss
+
+    s.step_fn = step_fn
+    llama_train.run(args, s)
+    for k, loss in pending:  # the last step's, after the run's final save
+        print(ELASTIC + json.dumps({"process": rank, "step": k, "loss": loss.item(),
+                                    "t": None}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
 def train_main(plan: Plan, argv: list) -> int:
     """A child of the launch row: what ``llama_train.main`` does (a setup
     and a run of ``argv``) on the plan's models, then the replicas' check
@@ -748,11 +981,14 @@ def main(argv=None) -> int:
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--tmp", default="")
     parser.add_argument("--tokens", default="")
+    parser.add_argument("--elastic", action="store_true",
+                        help="with --train: a child of the elastic row")
     parser.add_argument("--train", nargs=argparse.REMAINDER,
-                        help="a child of the launch row: llama_train's arguments")
+                        help="a child of the launch or elastic row: llama_train's arguments")
     args = parser.parse_args(argv)
     if args.train is not None:
-        return train_main(Plan.for_device(args.device, args.procs), args.train)
+        child = elastic_main if args.elastic else train_main
+        return child(Plan.for_device(args.device, args.procs), args.train)
     if args.worker:
         return worker(Plan.for_device(args.device, args.procs), args.tmp, args.tokens)
     if args.device == "cuda":
@@ -787,9 +1023,10 @@ def main(argv=None) -> int:
         rows = spawn(plan, tmp, tokens)
         rows.append(launch_row(plan, tmp, tokens))
         slice_fails = slice_local_row(plan, tmp, tokens, refs)
+        elastic_fails, elastic = elastic_row(plan, tmp, tokens)
         routes = torch.load(os.path.join(tmp, "routes.pt"))
         dp_stats = torch.load(os.path.join(tmp, "resnet_stats.pt"))
-    fails = list(slice_fails)
+    fails = slice_fails + elastic_fails
     by_name = {row["name"]: row for row in rows}
     for row in rows:
         if "same_as" in row:
@@ -802,7 +1039,7 @@ def main(argv=None) -> int:
     for f in fails:
         log(f"[n] FAIL {f}")
     summary = {"ok": not fails, "cards": procs, "seconds": time.perf_counter() - t_start,
-               "references": refs, "rows": rows}
+               "references": refs, "rows": rows, "elastic": elastic}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -16,7 +16,9 @@ addressing and the sharded world's restore, on the CPU.
   by the peer. The sharded world's votes (``WorldGate``).
 - One fixture of processes: two slice-local worlds of 2 gloo ranks each
   through the launcher (llama-tiny, fsdp=2, ``TPU_SHARD_SERVER``): slice
-  1 killed after its first durable step, then started again three ways:
+  1 killed once its own DCP stream holds a durable step, however late
+  (``kill_at_durable``, pinned with a fake slice), then started again
+  three ways:
   with slice 0's address (every rank restores its own shards from its
   peer, at one step, and trains on with slice 0's losses); misaddressed
   (``port + 1``: rank 0 is offered rank 1's shards, rank 1 nothing; both
@@ -380,6 +382,57 @@ def launched(tmp, tag, slice_index, port, peers="", ckpt="", steps=STEPS):
                             start_new_session=True)
 
 
+def kill_at_durable(proc, stream, poll=0.05):
+    """SIGKILL ``proc``'s process group once ``stream`` holds a durable
+    step (or once ``proc`` has ended): the newest durable step the stream
+    holds after the kill, which a restart's storage rung restores; None
+    only when the process ended without one. The wait is on that
+    condition, however long the slice takes under load; the beat file is
+    not read, as a step can be finalized on storage and not yet published
+    when the kill lands."""
+    while proc.poll() is None and not chip_smoke.durable_steps(stream):
+        time.sleep(poll)
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+    steps = chip_smoke.durable_steps(stream)
+    return steps[-1] if steps else None
+
+
+# A slice that finalizes DCP steps on its own clock: its first after
+# FIRST seconds, then one every NEXT seconds, each directory complete
+# before its .metadata appears (as DCP writes it); its beat file never
+# shows a step.
+FAKE_SLICE = r"""
+import os, sys, time
+stream, first, every = sys.argv[1], float(sys.argv[2]), float(sys.argv[3])
+time.sleep(first)
+for step in range(2, 400, 2):
+    os.makedirs(os.path.join(stream, str(step)))
+    open(os.path.join(stream, str(step), ".metadata"), "w").close()
+    time.sleep(every)
+"""
+
+
+@pytest.mark.parametrize("first,every", [(1.0, 60.0), (0.5, 0.01)])
+def test_a_slice_is_killed_at_a_step_its_stream_holds(tmp_path, first, every):
+    """The worlds fixture's kill: a slice whose first durable step comes
+    late is killed after it, never before (no killed_at of None), and the
+    step recorded is the newest one its stream holds after the kill,
+    however fast the steps follow each other."""
+    stream = str(tmp_path / "dcp")
+    proc = subprocess.Popen([sys.executable, "-c", FAKE_SLICE, stream, str(first), str(every)],
+                            start_new_session=True)
+    t0 = time.monotonic()
+    killed_at = kill_at_durable(proc, stream)
+    assert proc.returncode == -signal.SIGKILL and time.monotonic() - t0 >= first
+    assert killed_at is not None and killed_at == chip_smoke.durable_steps(stream)[-1]
+    time.sleep(0.2)
+    assert chip_smoke.durable_steps(stream)[-1] == killed_at  # nothing after the kill
+
+
 def finish(procs, timeout=240):
     deadline = time.monotonic() + timeout
     try:
@@ -405,16 +458,11 @@ def worlds(tmp_path_factory):
     procs = [zero, one]
     out = {}
     try:
-        deadline = time.monotonic() + 180
-        while time.monotonic() < deadline and one.poll() is None:
-            beat = chip_smoke.read_json(os.path.join(tmp, "beat-slice1.json")) or {}
-            if beat.get("checkpoint_step") is not None:
-                break
-            time.sleep(0.05)
-        os.killpg(one.pid, signal.SIGKILL)
-        one.wait()
+        # Slice 1 dies at a step its own stream made durable: the step its
+        # restarts resume from (through the peer, at or after it; through
+        # storage, that step).
+        out["killed_at"] = kill_at_durable(one, os.path.join(ckpt, "slice-1", "dcp"))
         survivor = chip_smoke.published_peer(os.path.join(tmp, "beat-slice0.json"), zero, 120)
-        out["killed_at"] = beat.get("checkpoint_step")
         out["survivor_alive"] = zero.poll() is None
         address = survivor["peer_addr"]
         # A copy of slice 1's stream for the two other restarts (hard links:
@@ -458,6 +506,7 @@ def worlds(tmp_path_factory):
 
 
 def test_each_rank_restores_its_own_shards_from_its_peer(worlds):
+    assert worlds["killed_at"] is not None, worlds["logs"]["restarted"][-3000:]
     assert worlds["survivor_alive"] and worlds["codes"]["slice0"] == 0
     assert worlds["codes"]["restarted"] == 0, worlds["logs"]["restarted"][-3000:]
     runs, zero = worlds["runs"]["restarted"], worlds["runs"]["slice0"]

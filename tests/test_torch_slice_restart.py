@@ -36,6 +36,7 @@ import time
 
 import pytest
 
+from chip_smoke import durable_steps
 from tf_operator_tpu.cli import OperatorManager, OperatorOptions, build_arg_parser, \
     options_from_args
 from tf_operator_tpu.cluster.memory import InMemoryCluster
@@ -306,17 +307,6 @@ def cluster_read(path):
             return json.load(f)
     except (OSError, ValueError):
         return None
-
-
-def durable_steps(stream):
-    """The steps of a slice's DCP stream that have their metadata; none
-    where the slice has not saved yet."""
-    try:
-        names = os.listdir(stream)
-    except FileNotFoundError:
-        return []
-    return sorted(int(d) for d in names
-                  if os.path.exists(os.path.join(stream, d, ".metadata")))
 
 
 def recreated(cluster, uids, name):

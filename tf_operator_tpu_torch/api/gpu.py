@@ -34,6 +34,18 @@ refused.
 jobs while their GPUs fit in N, a whole job at a time, or one node's gang
 at a time with ``--admission-slice-granularity``
 (``tests/test_torch_slice_restart.py`` pins both).
+
+**Elastic jobs.** ``gpu_job(..., elastic=(min_nodes, max_nodes))`` writes
+a JAXJob's ``spec.elastic: {minSlices, maxSlices}``: a node is a slice, so
+the job is resized in whole nodes by the operator's SDK,
+``JobClient(cluster, kind="JAXJob").scale(name, nodes)``, which patches
+``numSlices``, the Worker count and a declared ``slice`` axis together.
+The operator then replaces every pod of the old world in one batch, and
+the new world's ranks resume from the job's checkpoint (``llama_train``:
+DCP reshards a sharded state to the new world; ``--batch`` is global, so
+each rank's rows change and the global batch does not). A grow that does
+not fit the GPUs of ``--capacity nvidia.com/gpu@h100=N`` waits at the
+admission gate. A PyTorchJob is not elastic: the SDK resizes JAXJobs only.
 """
 
 from __future__ import annotations
@@ -111,6 +123,25 @@ def _check(kind: str, nodes: int, gpus: int, node: NodeType, node_type: str,
                          f"{gpus} GPUs = {nodes * gpus}")
 
 
+def _elastic(kind: str, nodes: int, bounds) -> Dict[str, int]:
+    """``spec.elastic`` of a job of ``nodes`` nodes resizable within
+    ``bounds`` (``(min_nodes, max_nodes)``, max None for no bound), refused
+    as the operator's validation refuses it (``api/jaxjob.py validate``)."""
+    if kind != "JAXJob":
+        raise ValueError(f"elastic resizes a JAXJob in whole nodes (JobClient.scale); a {kind} "
+                         "is not elastic")
+    low, high = bounds
+    if low < 1:
+        raise ValueError(f"JAXJobSpec is not valid: elastic.minSlices must be >= 1, got {low}")
+    if high is not None and high < low:
+        raise ValueError(f"JAXJobSpec is not valid: elastic.maxSlices ({high}) < minSlices "
+                         f"({low})")
+    if nodes < low or (high is not None and nodes > high):
+        raise ValueError(f"JAXJobSpec is not valid: numSlices {nodes} outside elastic bounds "
+                         f"[{low}, {high}]")
+    return {"minSlices": low} if high is None else {"minSlices": low, "maxSlices": high}
+
+
 def _pod_template(template: Optional[dict], container_name: str, image: str,
                   command: List[str], gpus: int, selector: Dict[str, str],
                   env: Dict[str, str]) -> dict:
@@ -145,7 +176,7 @@ def gpu_job(name: str, kind: str, nodes: int, command: List[str], *,
             node_type: str = DEFAULT_NODE_TYPE, gpus_per_node: Optional[int] = None,
             mesh: Optional[Dict[str, int]] = None, image: str = DEFAULT_IMAGE,
             namespace: str = "default", template: Optional[dict] = None,
-            selector: str = "gke") -> dict:
+            selector: str = "gke", elastic: Optional[tuple] = None) -> dict:
     """A JAXJob or PyTorchJob manifest that runs ``command`` on ``nodes``
     GPU nodes of ``node_type``, ``gpus_per_node`` processes a node (all its
     cards by default), one pod a node; ``mesh`` defaults to
@@ -153,14 +184,17 @@ def gpu_job(name: str, kind: str, nodes: int, command: List[str], *,
     values are kept; ``selector`` picks the node label: ``"gke"`` for GKE's
     GPU node pools, ``"gfd"`` for a cluster that labels its nodes through
     the NVIDIA GPU operator's feature discovery (on-premises, or a cloud
-    other than GKE). Raises ``ValueError`` for a GPU count the node does not
-    have, or a mesh whose size is not nodes x GPUs."""
+    other than GKE); ``elastic`` (``(min_nodes, max_nodes)``) makes a
+    JAXJob resizable in whole nodes (module doc). Raises ``ValueError`` for
+    a GPU count the node does not have, a mesh whose size is not nodes x
+    GPUs, or elastic bounds the operator refuses."""
     node = NODE_TYPES.get(node_type)
     if node is None:
         raise ValueError(f"unknown GPU node type {node_type!r}; known: {sorted(NODE_TYPES)}")
     gpus = gpus_per_node or node.gpus
     mesh = dict(mesh) if mesh is not None else default_mesh(kind, nodes, gpus)
     _check(kind, nodes, gpus, node, node_type, mesh, command)
+    bounds = _elastic(kind, nodes, elastic) if elastic is not None else None
     labels = {"gke": {NODE_SELECTOR_GKE: node.gke_accelerator},
               "gfd": {NODE_SELECTOR_GFD: node.product}}
     if selector not in labels:
@@ -172,6 +206,8 @@ def gpu_job(name: str, kind: str, nodes: int, command: List[str], *,
     if kind == "JAXJob":
         spec = {"numSlices": nodes, "mesh": mesh,
                 key: {"Worker": {"replicas": nodes, "template": pod}}}
+        if bounds is not None:
+            spec["elastic"] = bounds
     else:
         spec = {key: {"Master": {"replicas": 1, "template": pod}}}
         if nodes > 1:
@@ -188,3 +224,17 @@ def llama2_7b_multislice(image: str = DEFAULT_IMAGE) -> dict:
                    ["python", "-m", "tf_operator_tpu_torch.train.llama_train",
                     "--model=llama2-7b", "--batch=64", "--seq=2048"],
                    mesh={"slice": 2, "fsdp": 8}, image=image)
+
+
+def mixtral_8x7b_elastic(image: str = DEFAULT_IMAGE) -> dict:
+    """The GPU reading of ``examples/jax/mixtral/jaxjob_mixtral_8x7b_v5e64.yaml``:
+    mixtral-8x7b on 2 nodes of 8 H100s, elastic from 1 to 4 nodes, with the
+    manifest's command and checkpoint cadence. Its per-slice mesh keeps the
+    manifest's ``ep`` 4 and puts the rest of a node's 8 cards on ``fsdp``;
+    it has no ``slice`` axis, so a resize leaves it as it is and the ranks
+    add ``slice`` = the node count (``gpu_init.job_mesh_axes``)."""
+    return gpu_job("mixtral-8x7b", "JAXJob", 2,
+                   ["python", "-m", "tf_operator_tpu_torch.train.llama_train",
+                    "--model=mixtral-8x7b", "--steps=200000", "--batch=256", "--seq=4096",
+                    "--checkpoint-dir=gs://my-bucket/mixtral-ckpt", "--checkpoint-every=500"],
+                   mesh={"fsdp": 2, "ep": 4}, image=image, elastic=(1, 4))

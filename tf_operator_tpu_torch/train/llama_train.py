@@ -176,6 +176,18 @@ class Setup:
 _TRUTHY = ("1", "true", "yes")
 
 
+def checkpoint_stream(root: str, topo: gpu_init.Topology) -> str:
+    """The directory of this run's checkpoint stream under ``root``.
+    Slice-local worlds are independent training replicas: each slice owns
+    ``slice-<i>/``. A job of one slice is not slice-local
+    (``gpu_init.topology_from_env``), so a slice-local job resized to one
+    slice reads ``root``, where no slice saved, as the JAX example does
+    (``examples/jax/llama/llama_train.py``)."""
+    if topo.slice_world and topo.num_slices > 1:
+        return os.path.join(root, f"slice-{topo.slice_index}")
+    return root
+
+
 def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
     """The checkpoint manager of ``args.checkpoint_dir``, the restore of
     ``state`` in place through the ladder, and the shard server when the
@@ -187,11 +199,7 @@ def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
     launcher gave it; the pod publishes local rank 0's address. A sharded
     state restores through the ladder's world vote (``restore.WorldGate``):
     every rank from its own peer at one step, or every rank from storage."""
-    ckpt_dir = args.checkpoint_dir
-    if topo.slice_world and topo.num_slices > 1:
-        # Slice-local worlds are independent training replicas: each
-        # slice owns its own checkpoint stream.
-        ckpt_dir = os.path.join(ckpt_dir, f"slice-{topo.slice_index}")
+    ckpt_dir = checkpoint_stream(args.checkpoint_dir, topo)
     delta_persist = os.environ.get(heartbeat.ENV_DELTA_PERSIST) in _TRUTHY
     ckpt = CheckpointManager(ckpt_dir, model_meta=config.geometry(),
                              delta_persist=delta_persist)

@@ -325,6 +325,15 @@ def _assemble(state, shards: Dict[str, Any], commit=None):
     return state
 
 
+def world_cause(causes: Sequence[str]) -> str:
+    """The one cause a world's ranks report for a storage fall: the lowest
+    rank's that names what a peer did, before ``no-peers`` (a rank given
+    no address has nothing to report; in a grown world the ranks of a
+    node whose predecessor's server is excluded get none, while the
+    others met their peers)."""
+    return next((c for c in causes if c != "no-peers"), causes[0])
+
+
 class WorldGate:
     """The votes of a sharded world's ladder (module doc), collectives
     over ``group`` that every rank reaches at the same points of its
@@ -332,7 +341,7 @@ class WorldGate:
     fetch; calling the gate, ``gate(ok, step, cause)``, once a rank, after
     its fetch and checks or instead of them, answers ``(go, cause)``: go
     only when every rank verified its own shards at one step, else the
-    cause of the lowest rank that failed, or ``peer-step-mismatch`` (a
+    world's cause (:func:`world_cause`), or ``peer-step-mismatch`` (a
     later call returns the first answer)."""
 
     def __init__(self, group=None):
@@ -347,13 +356,13 @@ class WorldGate:
     def agree(self, step: Optional[int], cause: str) -> Tuple[Optional[int], str, bool]:
         """Each rank's newest usable peer step (None: none, for ``cause``):
         ``(step, cause, again)``, the step every rank's peer serves, or
-        None with the lowest such rank's cause, and whether to probe again
-        (every rank has a peer, at different steps: a snapshot rotated
-        between the probes)."""
+        None with the world's cause (:func:`world_cause`) of the ranks
+        that have none, and whether to probe again (every rank has a peer,
+        at different steps: a snapshot rotated between the probes)."""
         votes = self._gather((step, cause))
         missing = [c for s, c in votes if s is None]
         if missing:
-            return None, missing[0], False
+            return None, world_cause(missing), False
         if len({s for s, _ in votes}) > 1:
             return None, "peer-step-mismatch", True
         return votes[0][0], "ok", False
@@ -363,7 +372,7 @@ class WorldGate:
             votes = self._gather((bool(ok), step, cause))
             failed = [c for good, _, c in votes if not good]
             if failed:
-                self._answer = (False, failed[0])
+                self._answer = (False, world_cause(failed))
             elif len({s for _, s, _ in votes}) > 1:
                 self._answer = (False, "peer-step-mismatch")
             else:
