@@ -196,17 +196,33 @@ Phases (any failure raises and the script exits non-zero):
       job queued; ``scale()`` back to 1 starts it again, and it resumes
       from storage with the uninterrupted run's losses (LOSS_TOL) at phase
       e's launches a step; the restore's seconds and split, and the
-      seconds from the scale back to the first resumed step.
+      seconds from the scale back to the first resumed step;
+  (u) the configurations no earlier phase runs, at full width and depth:
+      llama-1b (dim 2048, 16 layers, 16 heads x 128, ffn 5504) through the
+      entry point at bs 8, seq 2048, 1 warm-up step and 3 timed steps
+      under its config's remat policy, the reference's "dots+rope+norms"
+      (rope 64 and 16 of each flash kernel a step), and under "dots" (rope
+      96): step time, tokens/s, MFU, peak memory; the two runs' 4 losses
+      within 1e-3 relative and one backward's gradients within 1e-2
+      relative (L2), as phase f holds them; phase c's checks and timings
+      at llama-1b's [8, 2048, 16, 128]; bert-large (24 layers, 16 heads x
+      64) on phase l's bench path (48/24/24 d=64 launches a step; step
+      time, tokens/s, MFU, peak memory), the d=64 kernels at its [16, 512,
+      16, 64] non-causal, and bert_train --model bert-large for 4 steps;
+      resnet18 card against CPU at phase p's tolerances and through
+      resnet_train at 224x224, global batch 256 (images/s, MFU, peak
+      memory).
 
-Phases e-m and t's in-process run each reset the launch counters just
+Phases e-m, u and t's in-process run each reset the launch counters just
 before their runs and read them just after; the launched runs of q, r and
 t count in their own processes and report the counts in their ``[llama]
 done`` summaries.
 The last lines are the nvidia-smi line, one JSON line of
 per-kernel results (launches from phase e, from phase k's einsum run for
-the entries named "...[moe-125m]", timed at its shapes, and from phase l's
-window for the "..._d64" entries, timed at bert-base's), and {"ok": true,
-"device": {...}}.
+the entries named "...[moe-125m]", timed at its shapes, from phase l's
+window for the "..._d64" entries, timed at bert-base's, and from phase u's
+runs for the entries named "...[llama-1b]" and "..._d64[bert-large]"), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -493,17 +509,17 @@ def sdpa(q, k, v, causal):
         enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
-def phase_c64(flash, peak, label="c") -> dict:
+def phase_c64(flash, peak, cases=CASES_D64, main="bert_base", label="c") -> dict:
     """The head_dim-64 kernels against their plain versions in every case
-    of CASES_D64, each case timed: each kernel, its plain version, its
+    of ``cases``, each case timed: each kernel, its plain version, its
     bound and share, SDPA's forward and its forward and backward; returns
-    the entries of the bert-base case. The kernels and SDPA are timed in
+    the entries of the case named ``main``. The kernels and SDPA are timed in
     CUDA graphs: at these sizes a call's host cost (a wrapper's tensor
     maps and allocations, autograd's graph) is near or above its device
     time, and back-to-back calls by events would time the host."""
     gen = torch.Generator(device="cuda").manual_seed(64)
     results = {}
-    for case, c in CASES_D64.items():
+    for case, c in cases.items():
         b, s, h, kvh, d, causal = c["b"], c["s"], c["h"], c["kvh"], c["d"], c["causal"]
         s_k = c.get("s_k", s)
         q, k, v, do, dlse = case_inputs(c, gen)
@@ -539,7 +555,7 @@ def phase_c64(flash, peak, label="c") -> dict:
             f"({ours / both_ms:.3f}x its time; by events without a graph: ours "
             f"{sum(time_ms(w[0]) for w in work.values()):.4f} ms, SDPA "
             f"{time_ms(sdpa_both):.4f} ms)")
-        if case == "bert_base":
+        if case == main:
             for r in entries.values():
                 r["sdpa_fwd_bwd_ms"] = both_ms
             results = entries
@@ -1127,13 +1143,9 @@ def phase_l(build, peak) -> dict:
     step, the flash forward replayed under "dots"), and the bert_train
     entry point for 4 steps. Returns the training run's losses and
     launches, and its batches."""
-    import contextlib
-    import io
-
     import numpy as np
 
     from tf_operator_tpu_torch.models import bert
-    from tf_operator_tpu_torch.train import bert_train
 
     cfg = bert.CONFIGS["bert-base"]
     rng = np.random.default_rng(0)
@@ -1146,28 +1158,43 @@ def phase_l(build, peak) -> dict:
     if abs(run["losses"][0] - math.log(cfg.vocab_size)) > 0.5:
         raise AssertionError(f"first loss {run['losses'][0]} is far from ln(vocab)")
 
-    out = io.StringIO()
-    t1 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        code = bert_train.main(["--steps", "4", "--batch", str(BERT_BATCH), "--log-every", "1"])
-    text = out.getvalue()
-    steps = {int(k): float(v) for k, v, _ in BERT_LINE.findall(text)}
-    log(f"[l] bert_train.main: exit {code} in {time.perf_counter() - t1:.1f} s; "
-        + "; ".join(text.strip().splitlines()))
-    if code != 0 or sorted(steps) != [0, 1, 2, 3] or not all(
-            math.isfinite(x) for x in steps.values()):
-        raise AssertionError(f"bert_train printed {text}")
+    bert_train_steps("l", [])
     run["batches"] = batches
     return run
 
 
-def bert_window(build, peak, label: str, batches: list, replica_group=None) -> dict:
-    """bert-base through the bench path on ``batches`` from seed 0's
-    weights (data parallel over ``replica_group`` when given): 1 warm-up
-    step and a window of the rest, with the launch counters and the peak
-    device memory reset just before and read just after; launches a step
-    flash_fwd_d64 24 (the forward replayed under "dots"), flash_dq_d64 12,
-    flash_dkv_d64 12 and no other. Returns losses, launches and times."""
+def bert_train_steps(label: str, argv: list) -> None:
+    """bert_train.main with ``argv`` for 4 steps at bs 16: it exits 0 and
+    prints 4 finite losses."""
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch.train import bert_train
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = bert_train.main([*argv, "--steps", "4", "--batch", str(BERT_BATCH),
+                                "--log-every", "1"])
+    text = out.getvalue()
+    steps = {int(k): float(v) for k, v, _ in BERT_LINE.findall(text)}
+    log(f"[{label}] bert_train.main {' '.join(argv)}: exit {code} in "
+        f"{time.perf_counter() - t0:.1f} s; " + "; ".join(text.strip().splitlines()))
+    if code != 0 or sorted(steps) != [0, 1, 2, 3] or not all(
+            math.isfinite(x) for x in steps.values()):
+        raise AssertionError(f"bert_train printed {text}")
+
+
+def bert_window(build, peak, label: str, batches: list, replica_group=None,
+                model_name: str = "bert-base") -> dict:
+    """``model_name`` (bert-base by default) through the bench path on
+    ``batches`` from seed 0's weights (data parallel over
+    ``replica_group`` when given): 1 warm-up step and a window of the
+    rest, with the launch counters and the peak device memory reset just
+    before and read just after; launches a step flash_fwd_d64 two a layer
+    (the forward replayed under "dots"), flash_dq_d64 and flash_dkv_d64
+    one a layer (bert-base: 24/12/12) and no other. Returns losses,
+    launches and times."""
     from tf_operator_tpu_torch.models import bert
     from tf_operator_tpu_torch.train.train_step import (
         init_train_state,
@@ -1175,7 +1202,7 @@ def bert_window(build, peak, label: str, batches: list, replica_group=None) -> d
         make_train_step,
     )
 
-    cfg = bert.CONFIGS["bert-base"]
+    cfg = bert.CONFIGS[model_name]
     gc.collect()
     torch.cuda.empty_cache()
     model = bert.Bert(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
@@ -1201,7 +1228,7 @@ def bert_window(build, peak, label: str, batches: list, replica_group=None) -> d
     tokens_per_s = batches[0].shape[0] * BERT_SEQ / step_s
     mfu = tokens_per_s * cfg.flops_per_token(BERT_SEQ) / (peak.bf16_tflops * 1e12)
     per_step = {k: n / steps for k, n in launches.items()}
-    log(f"[{label}] bert-base ({cfg.param_count():,} parameters), bs {batches[0].shape[0]}, "
+    log(f"[{label}] {model_name} ({cfg.param_count():,} parameters), bs {batches[0].shape[0]}, "
         f"seq {BERT_SEQ}, remat {cfg.remat_policy}: losses {losses}")
     log(f"[{label}] window of {steps - 1} steps in {window:.4f} s: step {step_s:.4f} s, "
         f"tokens/s {tokens_per_s:.1f}, MFU {mfu:.4f} (peak {peak.bf16_tflops} TFLOP/s, "
@@ -1218,7 +1245,7 @@ def bert_window(build, peak, label: str, batches: list, replica_group=None) -> d
     del model, state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": losses, "launches": launches, "step_s": step_s}
+    return {"losses": losses, "launches": launches, "step_s": step_s, "per_step": per_step}
 
 
 def one_rank_group():
@@ -1377,17 +1404,17 @@ RESNET_TOL = {"norm_grad": 0.25, "grad": 0.2, "stats": 2e-2}
 MNIST_ARGS = ["--steps=600", "--batch=256", "--target-accuracy=0.95"]  # jaxjob_mnist.yaml
 
 
-def resnet_parity() -> None:
-    """resnet50 from the port's seed-0 init (each block's last BatchNorm
-    scale at 0.1): one training-mode forward and backward at bs 2 on the
-    card (bf16, channels_last) and on the CPU (fp32), within PARITY_TOL
-    and RESNET_TOL."""
+def resnet_parity(name: str = RESNET["model"], label: str = "p") -> None:
+    """``name`` (resnet50 by default) from the port's seed-0 init (each
+    block's last BatchNorm scale at 0.1): one training-mode forward and
+    backward at bs 2 on the card (bf16, channels_last) and on the CPU
+    (fp32), within PARITY_TOL and RESNET_TOL."""
     import numpy as np
     import torch.nn.functional as F
 
     from tf_operator_tpu_torch.models import resnet
 
-    cfg = resnet.CONFIGS[RESNET["model"]]
+    cfg = resnet.CONFIGS[name]
     cpu_model = resnet.ResNet(dataclasses.replace(cfg, dtype=torch.float32), device="cpu",
                               generator=torch.Generator().manual_seed(0))
     norms = {n for n, m in cpu_model.named_modules() if isinstance(m, resnet.BatchNorm)}
@@ -1428,11 +1455,11 @@ def resnet_parity() -> None:
     worst_conv = max((n for n in grads if not in_norm[n]), key=grads.get)
     worst_norm = max((n for n in grads if in_norm[n]), key=grads.get)
     worst_stat = max(stats, key=stats.get)
-    log(f"[p] {RESNET['model']} ({sum(p.numel() for p in cpu_params.values()):,} parameters) "
+    log(f"[{label}] {name} ({sum(p.numel() for p in cpu_params.values()):,} parameters) "
         f"bs 2 at {size}x{size}, one training step: loss card {gpu_loss.item():.6f} cpu "
         f"{cpu_loss.item():.6f}, rel {loss_rel:.3e} (tol {PARITY_TOL['loss']}; card "
         f"{t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
-    log(f"[p] worst grad-norm rel of a convolution or the head {grads[worst_conv]:.3e} at "
+    log(f"[{label}] worst grad-norm rel of a convolution or the head {grads[worst_conv]:.3e} at "
         f"{worst_conv} (tol {PARITY_TOL['grad_norm']}), of a BatchNorm "
         f"{grads[worst_norm]:.3e} at {worst_norm} (tol {RESNET_TOL['norm_grad']}), over "
         f"{len(grads)} parameters; the whole gradient rel L2 {whole_rel:.3e} (tol "
@@ -1441,7 +1468,7 @@ def resnet_parity() -> None:
     if not (loss_rel <= PARITY_TOL["loss"] and grads[worst_conv] <= PARITY_TOL["grad_norm"]
             and grads[worst_norm] <= RESNET_TOL["norm_grad"] and whole_rel <= RESNET_TOL["grad"]
             and stats[worst_stat] <= RESNET_TOL["stats"]):
-        raise AssertionError("resnet50 card against CPU: outside the tolerances above")
+        raise AssertionError(f"{name} card against CPU: outside the tolerances above")
     del gpu_model, cpu_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2205,6 +2232,99 @@ def recovery_legs() -> None:
         f"{out['delta']['delta_persist_fraction']}, have-list {out['delta']['have_list_fraction']}")
 
 
+# Phase (u): the configurations of the JAX package no earlier phase ran,
+# at full width and depth. llama-1b (dim 2048, 16 layers, 16 heads x 128,
+# ffn 5504) through the entry point at phase e's batch and sequence under
+# its config's policy, the reference's "dots+rope+norms", and under
+# "dots"; bert-large (24 layers, 16 heads x 64) on phase l's bench path
+# and through bert_train; resnet18 card against CPU and through
+# resnet_train at phase p's image size and batch.
+LLAMA_1B_ARGS = ["--model", "llama-1b", *MAIN_ARGS[2:]]
+LLAMA_1B_SHAPE = dict(b=8, s=2048, h=16, kvh=16, d=128, causal=True)
+BERT_LARGE_SHAPE = dict(b=BERT_BATCH, s=BERT_SEQ, h=16, kvh=16, d=64, causal=False)
+RESNET18_STEPS = 5
+
+
+def phase_u(build, peak, flash, rope_mod) -> dict:
+    """llama-1b under both policies (step time, tokens/s, MFU, peak memory,
+    launches a step; 4 losses within LOSS_TOL and one backward's
+    gradients within GRAD_TOL of each other) and the four kernels at its
+    shapes; bert-large's bench step (48/24/24 d=64 launches a step) and
+    the d=64 kernels at its shape, and bert_train --model bert-large for 4
+    steps; resnet18 card against CPU and through resnet_train. Returns the
+    kernels' entries at llama-1b's and bert-large's shapes, with the
+    launches of the reference policy's run and of bert-large's window."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.models import bert, llama, resnet
+    from tf_operator_tpu_torch.train import resnet_train
+
+    policy = llama.CONFIGS["llama-1b"].remat_policy
+    runs = {p: train_run(build, peak, "u", [*LLAMA_1B_ARGS, "--steps", "4",
+                                            "--remat-policy", p])
+            for p in (policy, "dots")}
+    ref, dots = runs[policy], runs["dots"]
+    if abs(ref["losses"][0] - math.log(ref["config"].vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {ref['losses'][0]} is far from ln(vocab)")
+    log(f"[u] llama-1b ({ref['config'].param_count():,} parameters): {policy} step "
+        f"{ref['step_s']:.4f} s, peak {ref['peak_gib']:.3f} GiB; dots step {dots['step_s']:.4f} s "
+        f"({dots['step_s'] / ref['step_s']:.3f}x), peak {dots['peak_gib']:.3f} GiB "
+        f"({dots['peak_gib'] - ref['peak_gib']:+.3f})")
+    check_losses("u", f"llama-1b dots against {policy}", dots["losses"], ref["losses"])
+    grads = first_grads([*LLAMA_1B_ARGS, "--remat-policy", policy])
+    check_grads("u", f"llama-1b dots against {policy}",
+                first_grads([*LLAMA_1B_ARGS, "--remat-policy", "dots"]), grads)
+    del grads, runs, dots
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = phase_c(flash, rope_mod, peak, {"llama_1b": LLAMA_1B_SHAPE}, main="llama_1b",
+                      label="u")
+    for name, res in results.items():
+        res["name"] = f"{name}[llama-1b]"
+        res["launches"] = ref["launches"][name]
+        res["launches_per_step"] = ref["per_step"][name]
+
+    cfg = bert.CONFIGS["bert-large"]
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ + 1),
+                                             dtype=np.int32)).cuda() for _ in range(BERT_STEPS)]
+    large = bert_window(build, peak, "u", batches, model_name="bert-large")
+    if abs(large["losses"][0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {large['losses'][0]} is far from ln(vocab)")
+    del batches
+    d64 = phase_c64(flash, peak, {"bert_large": BERT_LARGE_SHAPE}, main="bert_large",
+                    label="u")
+    for name, res in d64.items():
+        res["name"] = f"{name}[bert-large]"
+        res["launches"] = large["launches"][name]
+        res["launches_per_step"] = large["per_step"][name]
+    results.update({r["name"]: r for r in d64.values()})
+    bert_train_steps("u", ["--model", "bert-large"])
+
+    resnet_parity("resnet18", "u")
+    flops = 3 * resnet.CONFIGS["resnet18"].forward_flops(RESNET["image"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = resnet_train.run(resnet_train.parse_args(
+        ["--model", "resnet18", "--image-size", str(RESNET["image"]), "--batch",
+         str(RESNET["batch"]), "--log-every", "100", "--steps", str(RESNET18_STEPS)]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = run["window_seconds"] / run["window_steps"]
+    ips = run["images_per_step"] / step_s
+    log(f"[u] resnet_train resnet18 {RESNET['image']}x{RESNET['image']} global batch "
+        f"{RESNET['batch']}: losses {run['losses']}; window of {run['window_steps']} steps in "
+        f"{run['window_seconds']:.4f} s: step {step_s:.4f} s, images/s {ips:.1f}, MFU "
+        f"{ips * flops / (peak.bf16_tflops * 1e12):.4f} ({flops:.4e} FLOP an image); peak "
+        f"device memory {peak_gb:.3f} GB")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"non-finite loss {run['losses']}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2250,6 +2370,7 @@ def main() -> int:
     phase_r(main)
     phase_s()
     phase_t(build, peak, main)
+    configs = phase_u(build, peak, flash, rope_mod)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]
@@ -2259,7 +2380,7 @@ def main() -> int:
 
     log(smi_line())
     log(json.dumps({"kernels": list(results.values()) + list(moe.values())
-                    + list(d64.values())}))
+                    + list(d64.values()) + list(configs.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -35,10 +35,12 @@ seed; then, in the N processes, the rows:
   in whole nodes (:func:`elastic_row`): 2 nodes, 1 node, 2 nodes, each
   world from the DCP checkpoint, against an unresized 2-node run;
 - moe-125m over ep=N, over fsdp=N (the expert axis is fsdp: 8 experts
-  divide it) and over ep=2 x fsdp=N/2, global batch 8N: the first loss at
-  ``LOSS_TOL``, the later ones at ``PARITY_TOL["loss"]``, with the share
-  of (token, rank) routes of the first forward whose expert differs from
-  the one-card run's; the all-to-alls a step; the ep=N run, and
+  divide it), over ep=2 x fsdp=N/2 and, at N = 4, over ep=2 x tp=2 (each
+  expert of a rank's four split over tp), global batch 8N: the first
+  loss at ``LOSS_TOL``, the later ones at ``PARITY_TOL["loss"]``, with
+  the share of (token, rank) routes of the first forward whose expert
+  differs from the one-card run's; the all-to-alls and the experts' tp
+  all-reduces (``experts.COUNTS``) a step; the ep=N run, and
   llama-400m's fsdp=N one, run again, traced by the entry point's
   ``TPU_PROFILE_*`` window (steps 1-2): per card the compute kernels'
   busy ms, the idle share and the NCCL kernels' ms a step (all-to-all
@@ -193,14 +195,15 @@ def reset(plan: Plan) -> None:
 
 
 def counters(plan: Plan, steps: int) -> dict:
-    """This process's launches, all-to-alls and permutes a step, and its
-    peak memory."""
+    """This process's launches, all-to-alls, tp all-reduces of the experts
+    and permutes a step, and its peak memory."""
     from tf_operator_tpu_torch.ops import build
     from tf_operator_tpu_torch.parallel import collectives, experts
 
     launches = {k: n / steps for k, n in build.LAUNCHES.items() if n}
     peak = torch.cuda.max_memory_allocated() if plan.device == "cuda" else 0
     return {"launches": launches, "all_to_all": experts.COUNTS["all_to_all"] / steps,
+            "tp_all_reduce": experts.COUNTS["tp"] / steps,
             "ppermute": collectives.COUNTS["ppermute"] / steps, "peak_bytes": peak}
 
 
@@ -921,13 +924,16 @@ def check_row(plan: Plan, row: dict, refs: dict) -> list:
     every = [r["launches"] for r in ranks]
     shown = f"{launches} (every rank)" if every.count(launches) == len(every) else every
     a2a = [r["all_to_all"] for r in ranks]
+    tp_sums = [r.get("tp_all_reduce") for r in ranks]
     unit = row.get("unit", "tokens")
     log(f"[n] {what}: step {row['step_s']:.4f} s, {unit}/s {row['tokens_per_s']:.1f} "
         f"({per_card:.1f} a card), MFU {mfu:.4f}; peak memory of the fullest card "
         f"{peak / 1e9:.3f} GB; launches a step a card {shown}; all-to-alls a step a "
-        f"card {a2a}")
+        f"card {a2a}; the experts' tp all-reduces a step a card {tp_sums}")
     if row.get("a2a_expected") and not all(n > 0 for n in a2a):
         fails.append(f"{what}: no all-to-all ran")
+    if row.get("tp_expected") and not all(n for n in tp_sums):
+        fails.append(f"{what}: no tp all-reduce of the experts ran")
     if plan.device == "cuda" and row.get("kernels") and not launches:
         fails.append(f"{what}: no kernel launched")
     if "reckoned_bytes" in row:
@@ -1069,8 +1075,8 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
 
     def gather(row: dict, name: str, **extra) -> None:
         """Every rank's counters beside rank 0's row."""
-        mine = {k: row.get(k) for k in ("launches", "all_to_all", "ppermute", "peak_bytes",
-                                        "expect")}
+        mine = {k: row.get(k) for k in ("launches", "all_to_all", "tp_all_reduce", "ppermute",
+                                        "peak_bytes", "expect")}
         ranks = [None] * n
         dist.all_gather_object(ranks, mine)
         row.update(name=name, ranks=ranks, **extra)
@@ -1088,12 +1094,17 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
         row["expect"] = expect
         if moe:
             # Every data rank's routes of its rows, in the one-card batch's
-            # row order: the token file deals row j to data rank j mod N.
+            # row order: the token file deals row j to data rank j mod D.
+            # The ranks of a tp group share a data rank and route its rows
+            # alike.
             all_routes = [None] * n
             dist.all_gather_object(all_routes, (row["data_rank"], mine))
-            ordered = [r for _, r in sorted(all_routes, key=lambda x: x[0])]
-            routes[name] = {i: interleave([r[i] for r in ordered], plan.rows)
-                            for i in ordered[0]}
+            by_data_rank = {}
+            for data_rank, r in all_routes:
+                by_data_rank.setdefault(data_rank, r)
+            ordered = [by_data_rank[d] for d in sorted(by_data_rank)]
+            rows = plan.rows * n // len(ordered)
+            routes[name] = {i: interleave([r[i] for r in ordered], rows) for i in ordered[0]}
         a2a = extra.pop("a2a_expected", moe and "tp" not in (spec or {}))
         gather(row, name, ref=ref, kernels=True, a2a_expected=a2a, **extra)
         return row
@@ -1118,6 +1129,13 @@ def worker(plan: Plan, tmp: str, tokens: str) -> int:
     layout(f"{plan.moe} fsdp={n}", {"fsdp": n}, moe_args, ref="moe", moe=True)
     layout(f"{plan.moe} ep=2 x fsdp={half}", {"fsdp": half, "ep": 2}, moe_args, ref="moe",
            moe=True)
+    if n == 4:
+        # Each of a rank's experts split over tp: the all-to-alls over ep
+        # and the experts' partial products summed over tp.
+        layout(f"{plan.moe} ep=2 x tp=2", {"ep": 2, "tp": 2}, moe_args, ref="moe", moe=True,
+               a2a_expected=True, tp_expected=True)
+    else:
+        log(f"[n] the moe ep=2 x tp=2 row needs 4 cards; {n} here")
 
     # Where the time goes: the ep=N and fsdp=N runs again, traced at
     # steps 1-2 by the entry point's profiler window.

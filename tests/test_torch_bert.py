@@ -45,6 +45,7 @@ from tf_operator_tpu.train import train_step as jax_ts
 from tf_operator_tpu_torch.models import bert, convert
 from tf_operator_tpu_torch.ops import flash
 from tf_operator_tpu_torch.parallel import sharding
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import bert_train
 from tf_operator_tpu_torch.train import train_step as ts
 

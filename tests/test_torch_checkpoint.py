@@ -21,6 +21,7 @@ import torch
 from tf_operator_tpu.runtime import shard_server as jax_wire
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.runtime.shard_server import decode_shard, flatten_state
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
 from tf_operator_tpu_torch.train.train_step import (
     OptState,

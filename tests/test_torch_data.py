@@ -14,6 +14,7 @@ import torch
 from tf_operator_tpu.train import data as jax_data
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.native import build as native_build
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data
 from tf_operator_tpu_torch.train import train_step as ts
 

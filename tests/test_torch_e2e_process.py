@@ -32,6 +32,7 @@ from tf_operator_tpu.cli import OperatorManager, OperatorOptions
 from tf_operator_tpu.cluster.process import LocalProcessCluster
 from tf_operator_tpu.core import constants
 from tf_operator_tpu.metrics import Metrics
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_ENV = {"PYTHONPATH": REPO_ROOT, "OMP_NUM_THREADS": "1"}

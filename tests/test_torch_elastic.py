@@ -60,6 +60,7 @@ from tf_operator_tpu.sdk.client import JobClient
 from tf_operator_tpu_torch.api import gpu
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.runtime import gpu_init, heartbeat, launch
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import checkpoint, data, llama_train, restore
 from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
 

@@ -8,24 +8,33 @@ against one process and against the JAX package.
 - fp32 moe-tiny under remat "dots+rope+norms" through the ``llama_train``
   entry point from a seeded token file, over ep=2 (JAXJob env), fsdp=2
   (the expert axis is fsdp: 4 experts divide it) and tp=2 (no expert axis:
-  each expert's f split over tp), all on 2-process gloo: the born-sharded
-  weights bit-equal to the unsharded init, and 5 losses equal to one
-  process's at 1e-5 relative (only the order of the sums differs; the lr
-  warms up in 1 step, so the last 3 losses follow updates of the sharded
-  gradients, and a missing factor on the expert gradient would show there).
-  The ep and fsdp runs go through the all-to-all: 6 a layer and step (the
-  forward, the remat replay's forward, the backward).
+  each expert's f split over tp), all on 2-process gloo, and over ep=2 x
+  tp=2 on 4-process gloo (each expert of a rank's two split over tp): the
+  born-sharded weights bit-equal to the unsharded init, and 5 losses
+  equal to one process's at 1e-5 relative (only the order of the sums
+  differs; the lr warms up in 1 step, so the last 3 losses follow updates
+  of the sharded gradients, and a missing factor on the expert gradient
+  would show there). The ep, fsdp and ep x tp runs go through the
+  all-to-all: 6 a layer and step (the forward, the remat replay's
+  forward, the backward); the tp ones sum the experts' partial products
+  over tp, 3 a layer and step under ep x tp.
 - One MoE layer over ep=2 (each process half the batch and half the
   experts) against the JAX ``MoE`` under a 2-device ``Mesh`` with
-  ``use_mesh``, from seeded numpy weights: the output and the aux loss at
-  1e-5 relative, and the gradients of ``sum(y * w) + aux`` (the router's,
-  every expert's, the input's) at 1e-4 relative in L2.
+  ``use_mesh``, and over ep=2 x tp=2 (each ep rank's half of the batch on
+  both of its tp ranks, each expert's f split over tp) against it under a
+  4-device ``Mesh`` {"ep": 2, "tp": 2}, from seeded numpy weights: the
+  output and the aux loss at 1e-5 relative, and the gradients of
+  ``sum(y * w) + aux`` (the router's, every expert's, the input's) at
+  1e-4 relative in L2.
+- The port's expert placement over ep=2 x tp=2 is the JAX package's
+  ``spec_for_param`` for ``experts_w1`` and ``experts_w2`` on that mesh.
 - An ep=2 state saved through DCP after 3 steps and resumed to 6 gives the
   uninterrupted run's losses.
 - The sharded global norm counts FSDP2's ``_StridedShard`` (the fsdp shard
   of a tp-sharded dim) as a shard.
 
-Both process pairs are spawned once, together, for the whole file.
+The two process pairs and the 4-process world are spawned once,
+together, for the whole file.
 """
 
 import dataclasses
@@ -47,6 +56,7 @@ from tf_operator_tpu.parallel import sharding as jax_sharding
 from tf_operator_tpu.parallel.mesh import use_mesh
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.parallel import sharding
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -55,6 +65,8 @@ ARGS = ["--model", "moe-tiny", "--device", "cpu", "--batch", "4", "--seq", "32",
 CONFIG = dict(dtype=torch.float32, param_dtype=torch.float32, remat=True,
               remat_policy="dots+rope+norms")
 LAYER_BATCH, LAYER_SEQ = 4, 32
+# The one MoE layer's meshes: over ep on 2 processes, over ep x tp on 4.
+LAYER_MESHES = {"ep": {"ep": 2}, "eptp": {"ep": 2, "tp": 2}}
 WORKER = r"""
 import dataclasses, json, os, sys
 import numpy as np, torch, torch.distributed as dist
@@ -85,27 +97,29 @@ def train(spec, extra):
     experts.reset_counts()
     out = llama_train.run(argv)
     return {"init_equal": init_equal, "placements": placements, "meshes": meshes,
-            "losses": out["losses"], "mesh": out["mesh"],
-            "all_to_all": experts.COUNTS["all_to_all"]}
+            "losses": out["losses"], "mesh": out["mesh"], **experts.COUNTS}
 
 
-def layer():
-    # One MoE layer over ep=2: this rank's half of the batch and experts.
-    world = dist.get_world_size()
+def layer(tp=1):
+    # One MoE layer over ep=2 (x tp): this ep rank's half of the batch and
+    # of the experts, each expert's f split over its tp group.
+    ep = dist.get_world_size() // tp
     ref = np.load(os.environ["LAYER_INPUTS"])
     cfg = llama.CONFIGS["moe-tiny"]
     moe = llama.MoE(dataclasses.replace(cfg, remat=False), device="cpu")
     moe.router.weight.data.copy_(torch.from_numpy(ref["router"].T))
     for name in ("experts_w1", "experts_w3", "experts_w2"):
         getattr(moe, name).data.copy_(torch.from_numpy(ref[name]))
-    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("fsdp", "ep"))
+    shape, names = ((1, ep), ("fsdp", "ep")) if tp == 1 else ((1, ep, tp), ("fsdp", "ep", "tp"))
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
     sharding.place_experts(moe, mesh)
-    rows = slice(rank * LAYER_BATCH // world, (rank + 1) * LAYER_BATCH // world)
+    r = mesh.get_local_rank("ep")
+    rows = slice(r * LAYER_BATCH // ep, (r + 1) * LAYER_BATCH // ep)
     x = torch.from_numpy(ref["x"][rows]).requires_grad_()
     y, aux = moe(x)
-    # This rank's share of sum(y * w) + aux, times the world: the mean of
-    # the ranks' objectives is the global one, as the mean of their losses.
-    (world * (y * torch.from_numpy(ref["w"][rows])).sum() + aux).backward()
+    # This rank's share of sum(y * w) + aux, times the data ranks: the mean
+    # of their objectives is the global one, as the mean of their losses.
+    (ep * (y * torch.from_numpy(ref["w"][rows])).sum() + aux).backward()
     return {"y": y.detach().tolist(), "aux": aux.item(), "dx": x.grad.tolist(),
             "router": moe.router.weight.grad.tolist(),
             **{n: getattr(moe, n).grad.to_local().tolist()
@@ -138,6 +152,11 @@ if role == "ep":
                                  again["restore"].step],
                      "listing": sorted(os.listdir(ckpt))}
     result["layer"] = layer()
+elif role == "eptp":
+    result["eptp"] = train('{"ep": 2, "tp": 2}', ["--steps", "5", "--warmup", "1", "--data",
+                                                  os.environ["TOKENS"]])
+    rank = dist.get_rank()
+    result["layer"] = layer(tp=2)
 else:
     for spec, name in (('{"fsdp": 2}', "fsdp"), ('{"tp": 2}', "tp")):
         result[name] = train(spec, ["--steps", "5", "--warmup", "1", "--data",
@@ -195,9 +214,9 @@ def _layer_inputs():
             "w": normal(LAYER_BATCH, LAYER_SEQ, d, scale=1.0)}
 
 
-def _jax_layer(inputs):
+def _jax_layer(inputs, axes):
     """(y, aux, gradients) of sum(y * w) + aux through the JAX MoE under a
-    2-device mesh {"ep": 2}."""
+    mesh of ``axes``."""
     jcfg = dataclasses.replace(jax_llama.CONFIGS["moe-tiny"], dtype=jnp.float32,
                                param_dtype=jnp.float32)
     moe = jax_llama.MoE(jcfg)
@@ -209,9 +228,11 @@ def _jax_layer(inputs):
         aux = sum(jnp.sum(leaf) for leaf in jax.tree.leaves(mutated["losses"]))
         return jnp.sum(y * inputs["w"]) + aux, (y, aux)
 
-    with use_mesh(_jax_mesh({"ep": 2})):
+    with use_mesh(_jax_mesh(axes)):
+        # XLA's backend optimisations cost compile time and buy nothing here.
         (_, (y, aux)), (grads, dx) = jax.jit(
-            jax.value_and_grad(objective, argnums=(0, 1), has_aux=True))(params, inputs["x"])
+            jax.value_and_grad(objective, argnums=(0, 1), has_aux=True),
+            compiler_options={"xla_backend_optimization_level": 0})(params, inputs["x"])
     grads = jax.tree.map(np.asarray, grads)["params"]
     return np.asarray(y), float(aux), {
         "router": grads["router"]["kernel"].T, "dx": np.asarray(dx),
@@ -220,20 +241,23 @@ def _jax_layer(inputs):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{"ep": [rank 0, rank 1], "other": [...], "single": losses, "jax": the
-    JAX layer's (y, aux, grads), "inputs": the layer's inputs}."""
+    """{"ep": [rank 0, rank 1], "other": [...], "eptp": [ranks 0-3],
+    "single": losses, "jax": {layout: the JAX layer's (y, aux, grads)},
+    "inputs": the layer's inputs}."""
     tmp = tmp_path_factory.mktemp("expert_parallel")
     tokens = tmp / "tokens.bin"
     data.write_token_file(str(tokens), np.random.default_rng(0).integers(
         0, 16, 50_000).astype(np.int32))
     inputs = _layer_inputs()
     np.savez(tmp / "layer.npz", **inputs)
-    ep_port, other_port = _free_port(), _free_port()
+    ep_port, other_port, eptp_port = _free_port(), _free_port(), _free_port()
     envs = {
         "ep": [{"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{ep_port}",
                 "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(r)} for r in range(2)],
         "other": [{"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(other_port),
                    "WORLD_SIZE": "2", "RANK": str(r)} for r in range(2)],
+        "eptp": [{"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(eptp_port),
+                  "WORLD_SIZE": "4", "RANK": str(r)} for r in range(4)],
     }
     common = {"OMP_NUM_THREADS": "1", "TOKENS": str(tokens), "CKPT": str(tmp / "ckpt"),
               "LAYER_INPUTS": str(tmp / "layer.npz")}
@@ -245,7 +269,7 @@ def runs(tmp_path_factory):
                     [sys.executable, "-c", WORKER, str(tmp / role), role, *ARGS], cwd=ROOT,
                     env={**os.environ, **common, **env}, stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True))
-        jax_result = _jax_layer(inputs)
+        jax_result = {layout: _jax_layer(inputs, axes) for layout, axes in LAYER_MESHES.items()}
         previous = llama.CONFIGS["moe-tiny"]
         llama.CONFIGS["moe-tiny"] = dataclasses.replace(previous, **CONFIG)
         try:
@@ -260,23 +284,23 @@ def runs(tmp_path_factory):
                 p.kill()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
-    result = {role: [json.loads((tmp / f"{role}.{r}").read_text()) for r in range(2)]
-              for role in envs}
+    result = {role: [json.loads((tmp / f"{role}.{r}").read_text()) for r in range(len(pair))]
+              for role, pair in envs.items()}
     result.update(single=single, jax=jax_result, inputs=inputs)
     return result
 
 
 def _layout(runs, layout):
-    return runs["ep" if layout == "ep" else "other"]
+    return runs[layout if layout in ("ep", "eptp") else "other"]
 
 
-@pytest.mark.parametrize("layout", ["ep", "fsdp", "tp"])
+@pytest.mark.parametrize("layout", ["ep", "fsdp", "tp", "eptp"])
 def test_born_sharded_init_is_bit_equal(runs, layout):
     for rank in _layout(runs, layout):
         assert rank[layout]["init_equal"]
 
 
-@pytest.mark.parametrize("layout", ["ep", "fsdp", "tp"])
+@pytest.mark.parametrize("layout", ["ep", "fsdp", "tp", "eptp"])
 def test_losses_match_one_process(runs, layout):
     single = np.array(runs["single"])
     # The updates moved the weights: the later losses fall well below the
@@ -304,24 +328,76 @@ def test_expert_layouts_and_all_to_alls(runs):
     assert tp["all_to_all"] == 0
 
 
+def _spec(placements, mesh_dims, sizes, ndim):
+    """A DTensor's placements as a PartitionSpec's entries: each dim's mesh
+    axis (None where no axis of size above 1 splits it)."""
+    spec = [None] * ndim
+    for placement, axis in zip(placements, mesh_dims):
+        if placement.startswith("Shard(") and sizes[axis] > 1:
+            spec[int(placement[len("Shard(dim="):-1])] = axis
+    return tuple(spec)
+
+
+def test_expert_placement_over_ep_x_tp_is_the_jax_spec(runs):
+    eptp = runs["eptp"][0]["eptp"]
+    assert eptp["mesh"] == {"fsdp": 1, "ep": 2, "tp": 2}
+    mesh = _jax_mesh(eptp["mesh"])
+    cfg = llama.CONFIGS["moe-tiny"]
+    e, d, f = cfg.n_experts, cfg.dim, cfg.ffn_dim
+    got, want = {}, {}
+    for name, shape in (("experts_w1", (e, d, f)), ("experts_w3", (e, d, f)),
+                        ("experts_w2", (e, f, d))):
+        key = f"layers.0.feed_forward.{name}"
+        got[name] = _spec(eptp["placements"][key], eptp["meshes"][key], eptp["mesh"], 3)
+        spec = jax_sharding.spec_for_param(f"params/layers_0/feed_forward/{name}", 3, mesh,
+                                           shape=shape)
+        want[name] = tuple(a if a is not None and eptp["mesh"][a] > 1 else None for a in spec)
+    assert got == want
+    # The experts over ep, f over tp: w1 and w3 [e, d, f], w2 [e, f, d].
+    assert want == {"experts_w1": ("ep", None, "tp"), "experts_w3": ("ep", None, "tp"),
+                    "experts_w2": ("ep", "tp", None)}
+
+
+def test_ep_x_tp_runs_the_all_to_alls_and_the_tp_sums(runs):
+    layers = llama.CONFIGS["moe-tiny"].n_layers
+    for rank in runs["eptp"]:
+        # 6 all-to-alls a layer as over ep alone; the w2 product summed over
+        # tp in the forward and its replay, the input's gradient in the
+        # backward.
+        assert rank["eptp"]["all_to_all"] == 5 * layers * 6
+        assert rank["eptp"]["tp"] == 5 * layers * 3
+
+
 def rel_err(got, ref):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     return np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
 
 
-def test_moe_layer_over_ep_matches_jax(runs):
-    y, aux, grads = runs["jax"]
-    ranks = [r["layer"] for r in runs["ep"]]
-    np.testing.assert_allclose(np.concatenate([r["y"] for r in ranks]), y, rtol=1e-5,
+@pytest.mark.parametrize("layout", ["ep", "eptp"])
+def test_moe_layer_over_ep_matches_jax(runs, layout):
+    y, aux, grads = runs["jax"][layout]
+    tp = LAYER_MESHES[layout].get("tp", 1)
+    # [ep][tp]: rank r is ep rank r // tp, tp rank r % tp.
+    ranks = [[r["layer"] for r in runs[layout][i:i + tp]]
+             for i in range(0, len(runs[layout]), tp)]
+    for name in ("y", "dx", "router"):  # the same on every rank of a tp group
+        for group in ranks:
+            for r in group[1:]:
+                np.testing.assert_allclose(r[name], group[0][name], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(np.concatenate([g[0]["y"] for g in ranks]), y, rtol=1e-5,
                                atol=1e-5 * np.abs(y).max())
-    for r in ranks:
-        assert r["aux"] == pytest.approx(aux, rel=1e-5)
-    world = len(ranks)
+    for group in ranks:
+        for r in group:
+            assert r["aux"] == pytest.approx(aux, rel=1e-5)
+    ep = len(ranks)
+    # An expert block [e/ep, d, f/tp] (w2 [e/ep, f/tp, d]): f joined over
+    # tp, the experts over ep.
+    f_dim = {"experts_w1": 2, "experts_w3": 2, "experts_w2": 1}
     got = {
-        "dx": np.concatenate([r["dx"] for r in ranks]) / world,
-        "router": np.mean([r["router"] for r in ranks], axis=0),
-        **{n: np.concatenate([r[n] for r in ranks]) for n in
-           ("experts_w1", "experts_w3", "experts_w2")},
+        "dx": np.concatenate([g[0]["dx"] for g in ranks]) / ep,
+        "router": np.mean([g[0]["router"] for g in ranks], axis=0),
+        **{n: np.concatenate([np.concatenate([r[n] for r in g], axis=f) for g in ranks])
+           for n, f in f_dim.items()},
     }
     for name, g in got.items():
         assert rel_err(g, grads[name]) < 1e-4, name

@@ -22,6 +22,7 @@ from tf_operator_tpu.ops.flash_pallas import (
 )
 from tf_operator_tpu_torch.ops import flash
 from tf_operator_tpu_torch.ops.attention import xla_attention
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 pallas = functools.partial(flash_attention_pallas, interpret=True)
 

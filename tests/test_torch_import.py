@@ -12,6 +12,8 @@ import sys
 
 import pytest
 
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tf_operator_tpu_torch"
 CSRC = PORT / "ops" / "csrc"

@@ -24,6 +24,7 @@ from tf_operator_tpu.runtime import heartbeat as jax_heartbeat
 from tf_operator_tpu.testing.stub_apiserver import StubApiServer
 from tf_operator_tpu_torch.cluster import kube
 from tf_operator_tpu_torch.runtime import heartbeat
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -18,6 +18,7 @@ import torch
 
 from tf_operator_tpu.models import llama as jax_llama
 from tf_operator_tpu_torch.models import convert, llama
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 NARROW = dict(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
               ffn_dim=512, max_seq_len=64)
@@ -91,12 +92,15 @@ def test_logits_hidden_and_grads_match_fp32(name):
     w = np.random.default_rng(2).standard_normal(
         (*tokens.shape, tmodel.config.vocab_size)).astype(np.float32)
 
-    def jloss(p):
-        return jnp.sum(jmodel.apply(p, tokens) * w)
+    def reference(p):
+        """The logits, the hidden state and the gradients of sum(logits *
+        w), in one program."""
+        logits, pullback = jax.vjp(lambda p: jmodel.apply(p, tokens), p)
+        return logits, jmodel.apply(p, tokens, return_hidden=True), pullback(w)[0]
 
-    jlogits = jmodel.apply(params, tokens)
-    jhidden = jmodel.apply(params, tokens, return_hidden=True)
-    jgrads = jax.grad(jloss)(params)
+    # XLA's backend optimisations cost compile time and buy nothing here.
+    jlogits, jhidden, jgrads = jax.jit(reference).lower(params).compile(
+        {"xla_backend_optimization_level": 0})(params)
 
     tt = torch.from_numpy(tokens).long()
     logits = tmodel(tt)
@@ -157,12 +161,23 @@ def test_unported_features_name_their_roadmap_items(feature):
             llama.Llama(llama.CONFIGS["moe-tiny"], device="meta", pp=2)
 
 
+# The one remat policy kept apart from the reference's on purpose: "dots"
+# for llama-400m's "dots+rope", measured on the card with every gradient
+# equal (ROADMAP, Divergences).
+REMAT_DIVERGENCES = {"llama-400m": ("dots", "dots+rope")}
+
+
 def test_config_accounting_matches():
     for name, jcfg in jax_llama.CONFIGS.items():
         tcfg = llama.CONFIGS[name]
         assert tcfg.param_count() == jcfg.param_count(), name
         assert tcfg.flops_per_token(2048) == jcfg.flops_per_token(2048), name
         assert tcfg.geometry() == jcfg.geometry(), name
+        policies = (tcfg.remat, tcfg.remat_policy), (jcfg.remat, jcfg.remat_policy)
+        if name in REMAT_DIVERGENCES:
+            assert (policies[0][1], policies[1][1]) == REMAT_DIVERGENCES[name], name
+        else:
+            assert policies[0] == policies[1], name
 
 
 def test_attention_impls_agree():

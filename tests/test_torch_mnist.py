@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from tf_operator_tpu.models import mnist as jax_mnist
 from tf_operator_tpu_torch.models import convert, mnist
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import mnist_train
 from test_torch_resnet import example_main
 

@@ -30,6 +30,7 @@ import torch.distributed as dist
 from tf_operator_tpu.models import llama as jax_llama
 from tf_operator_tpu.train import train_step as jax_ts
 from tf_operator_tpu_torch.models import convert, llama
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import llama_train
 from tf_operator_tpu_torch.train import train_step as ts
 

@@ -42,6 +42,7 @@ import torch
 
 from tf_operator_tpu.models import llama as jax_llama
 from tf_operator_tpu_torch.models import llama
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.testing.virtual_ranks import moe_over_sp
 from tf_operator_tpu_torch.train import data, llama_train
 
@@ -145,8 +146,10 @@ def _jax_layer(inputs, group_size):
         aux = sum(jnp.sum(leaf) for leaf in jax.tree.leaves(mutated["losses"]))
         return jnp.sum(y * inputs["w"]) + aux, (y, aux)
 
+    # XLA's backend optimisations cost compile time and buy nothing here.
     (_, (y, aux)), (grads, dx) = jax.jit(
-        jax.value_and_grad(objective, argnums=(0, 1), has_aux=True))(params, inputs["x"])
+        jax.value_and_grad(objective, argnums=(0, 1), has_aux=True),
+        compiler_options={"xla_backend_optimization_level": 0})(params, inputs["x"])
     grads = jax.tree.map(np.asarray, grads)["params"]
     return np.asarray(y), float(aux), {
         "router": grads["router"]["kernel"].T, "dx": np.asarray(dx),

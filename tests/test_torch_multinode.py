@@ -60,6 +60,7 @@ from tf_operator_tpu.train.data import TokenFileDataset as JaxTokenFileDataset
 from tf_operator_tpu_torch.api import gpu
 from tf_operator_tpu_torch.models import convert, llama
 from tf_operator_tpu_torch.runtime import gpu_init, heartbeat, launch
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train
 from tf_operator_tpu_torch.train.train_step import global_norm
 
@@ -456,6 +457,9 @@ def test_the_one_process_run_matches_the_jax_step(worlds, monkeypatch):
                                       jax_standard_mesh(1, devices=jax.devices()[:1]), jstate)
     weights = convert.flax_to_state_dict(jax.tree.map(np.asarray, jstate.params))
     batches = JaxTokenFileDataset(worlds["tokens"], 4, 32)
+    # XLA's backend optimisations cost compile time and buy nothing here.
+    jstep = jstep.lower(jstate, jnp.zeros((4, 33), jnp.int32)).compile(
+        {"xla_backend_optimization_level": 0})
     jlosses = []
     for _ in range(4):
         jstate, loss = jstep(jstate, jnp.asarray(next(batches)))

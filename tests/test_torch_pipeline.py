@@ -41,6 +41,7 @@ import torch
 from tf_operator_tpu.parallel.compat import supports_partial_manual
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.parallel import pipeline
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train, train_step
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

@@ -17,8 +17,8 @@ addressing and the sharded world's restore, on the CPU.
 - One fixture of processes: two slice-local worlds of 2 gloo ranks each
   through the launcher (llama-tiny, fsdp=2, ``TPU_SHARD_SERVER``): slice
   1 killed once its own DCP stream holds a durable step, however late
-  (``kill_at_durable``, pinned with a fake slice), then started again
-  three ways:
+  within the wait's bound (``kill_at_durable``, pinned with fake slices),
+  then started again three ways:
   with slice 0's address (every rank restores its own shards from its
   peer, at one step, and trains on with slice 0's losses); misaddressed
   (``port + 1``: rank 0 is offered rank 1's shards, rank 1 nothing; both
@@ -52,6 +52,7 @@ from tf_operator_tpu_torch.runtime.shard_server import (
     local_peer_addresses,
     start_shard_server,
 )
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import checkpoint, data, restore
 from tf_operator_tpu_torch.train.checkpoint import PERSIST_PARTS, CheckpointManager
 from tf_operator_tpu_torch.train.restore import RESTORE_PARTS, WorldGate, restore_with_fallback
@@ -382,15 +383,18 @@ def launched(tmp, tag, slice_index, port, peers="", ckpt="", steps=STEPS):
                             start_new_session=True)
 
 
-def kill_at_durable(proc, stream, poll=0.05):
+def kill_at_durable(proc, stream, timeout=180.0, poll=0.05):
     """SIGKILL ``proc``'s process group once ``stream`` holds a durable
-    step (or once ``proc`` has ended): the newest durable step the stream
-    holds after the kill, which a restart's storage rung restores; None
-    only when the process ended without one. The wait is on that
-    condition, however long the slice takes under load; the beat file is
-    not read, as a step can be finalized on storage and not yet published
-    when the kill lands."""
-    while proc.poll() is None and not chip_smoke.durable_steps(stream):
+    step (or once ``proc`` has ended, or after ``timeout`` seconds: a
+    slice that hangs fails the fixture in its own time): the newest
+    durable step the stream holds after the kill, which a restart's
+    storage rung restores; None when there is none. The wait is on that
+    condition, not on a count of steps, however long the slice takes
+    under load; the beat file is not read, as a step can be finalized on
+    storage and not yet published when the kill lands."""
+    deadline = time.monotonic() + timeout
+    while (proc.poll() is None and not chip_smoke.durable_steps(stream)
+           and time.monotonic() < deadline):
         time.sleep(poll)
     try:
         os.killpg(proc.pid, signal.SIGKILL)
@@ -431,6 +435,17 @@ def test_a_slice_is_killed_at_a_step_its_stream_holds(tmp_path, first, every):
     assert killed_at is not None and killed_at == chip_smoke.durable_steps(stream)[-1]
     time.sleep(0.2)
     assert chip_smoke.durable_steps(stream)[-1] == killed_at  # nothing after the kill
+
+
+def test_a_slice_with_no_durable_step_is_killed_at_the_bound(tmp_path):
+    """A slice that makes no durable step (hung, or far too slow) is
+    killed once the wait's bound has passed, and no step is recorded."""
+    stream = str(tmp_path / "dcp")
+    proc = subprocess.Popen([sys.executable, "-c", FAKE_SLICE, stream, "600", "60"],
+                            start_new_session=True)
+    t0 = time.monotonic()
+    assert kill_at_durable(proc, stream, timeout=1.0) is None
+    assert proc.returncode == -signal.SIGKILL and 1.0 <= time.monotonic() - t0 < 30
 
 
 def finish(procs, timeout=240):
@@ -476,11 +491,13 @@ def worlds(tmp_path_factory):
                                 f"{host}:{int(base) + 1}", os.path.join(tmp, "misaddressed"),
                                 steps=1)
         procs += [restarted, misaddressed]
-        finish([restarted, misaddressed, zero])
+        finish([misaddressed, zero])
+        # Every peer gone once slice 0 has ended; the restarted slice
+        # trains on meanwhile.
         orphaned = launched(tmp, "orphaned", 1, launch.free_port_block(2), address,
                             os.path.join(tmp, "orphaned"), steps=1)
         procs.append(orphaned)
-        finish([orphaned])
+        finish([restarted, orphaned])
         # The recovery legs, once the worlds have ended (its seconds are
         # its own, not shared with theirs).
         smoke = subprocess.run(

@@ -44,11 +44,15 @@ import torch.nn.functional as F
 import tf_operator_tpu.train.data as jax_data
 from tf_operator_tpu.models import resnet as jax_resnet
 from tf_operator_tpu_torch.models import convert, mnist, resnet
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import mnist_train, resnet_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples" / "jax"
 TINY = "resnet-tiny"
+# XLA's backend optimisations cost the JAX references' applies compile time
+# and buy nothing here.
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 
 def configs(name=TINY, dtype=jnp.float32, **changes):
@@ -90,9 +94,12 @@ def reference(name=TINY, dtype=jnp.float32, image_size=32, changes=()):
     jitted training-mode apply (with the updated batch_stats), eval-mode
     apply and loss-and-gradient (``jax_loss_fn``), made once a config."""
     jmodel = jax_resnet.ResNet(configs(name, dtype, **dict(changes))[0])
-    train = jax.jit(lambda v, x: jmodel.apply(v, x, train=True, mutable=["batch_stats"]))
-    evaluate = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))
-    grad = jax.jit(jax.value_and_grad(functools.partial(jax_loss_fn, jmodel), has_aux=True))
+    train = jax.jit(lambda v, x: jmodel.apply(v, x, train=True, mutable=["batch_stats"]),
+                    compiler_options=FAST_COMPILE)
+    evaluate = jax.jit(lambda v, x: jmodel.apply(v, x, train=False),
+                       compiler_options=FAST_COMPILE)
+    grad = jax.jit(jax.value_and_grad(functools.partial(jax_loss_fn, jmodel), has_aux=True),
+                   compiler_options=FAST_COMPILE)
     return moved(init(jmodel, image_size)), train, evaluate, grad
 
 

@@ -39,6 +39,7 @@ from tf_operator_tpu_torch.metrics import METRICS as PORT_METRICS
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.runtime.shard_server import flatten_state, start_shard_server
 from tf_operator_tpu_torch.testing import restore_faults
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
 from tf_operator_tpu_torch.train.restore import (
     GeometryMismatch,

@@ -41,6 +41,7 @@ from concurrent.futures import Future
 import numpy as np
 import pytest
 
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

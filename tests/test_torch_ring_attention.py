@@ -43,6 +43,7 @@ from tf_operator_tpu.parallel.mesh import standard_mesh as jax_standard_mesh
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.ops import ring_attention
 from tf_operator_tpu_torch.parallel import sharding
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -117,8 +118,14 @@ def _jax_ring(inputs, case, n, impl):
     ring = shard_map(partial(jax_ring_attention, axis_name="sp", block_impl=impl),
                      mesh=jax_standard_mesh(8, sp=n), in_specs=(spec,) * 3, out_specs=spec,
                      **relax)
-    out = jax.jit(ring)(q, k, v)
-    grads = jax.jit(jax.grad(lambda *a: (ring(*a) * do).sum(), argnums=(0, 1, 2)))(q, k, v)
+
+    def both(q, k, v):  # the output and its pullback of do, in one program
+        out, pullback = jax.vjp(ring, q, k, v)
+        return out, pullback(do)
+
+    # XLA's backend optimisations cost compile time and buy nothing here.
+    out, grads = jax.jit(both).lower(q, k, v).compile(
+        {"xla_backend_optimization_level": 0})(q, k, v)
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 

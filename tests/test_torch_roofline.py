@@ -11,6 +11,7 @@ import pytest
 from tf_operator_tpu_torch.ops.flash import flash_work
 from tf_operator_tpu_torch.ops.rope import rope_work
 from tf_operator_tpu_torch.ops.roofline import Work
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 PAIRS = 134_283_264
 Q_BYTES = 2 * 8 * 2048 * 8 * 128      # one bf16 [8, 2048, 8, 128] tensor

@@ -13,6 +13,7 @@ from tf_operator_tpu.models.llama import rope_table as jax_rope_table
 from tf_operator_tpu.ops.rope_pallas import _rope_bwd, rope_pallas
 from tf_operator_tpu_torch.models.llama import apply_rope, rope_table
 from tf_operator_tpu_torch.ops.rope import rope, rope_plain
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 kernel = functools.partial(rope_pallas, interpret=True)
 

@@ -26,6 +26,7 @@ from tf_operator_tpu.cluster.memory import InMemoryCluster
 from tf_operator_tpu.core import constants
 from tf_operator_tpu.runtime.tpu_init import topology_from_env as jax_topology_from_env
 from tf_operator_tpu_torch.runtime import gpu_init, heartbeat
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

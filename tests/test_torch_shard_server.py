@@ -17,6 +17,7 @@ import torch
 
 from tf_operator_tpu.runtime import shard_server as jax_wire
 from tf_operator_tpu_torch.runtime import shard_server as wire
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train.checkpoint import HostSnapshot
 from tf_operator_tpu_torch.train.restore import http_fetch
 

@@ -33,6 +33,7 @@ from tf_operator_tpu.parallel.sharding import spec_for_param
 from tf_operator_tpu_torch.models import bert, llama
 from tf_operator_tpu_torch.parallel import mesh as port_mesh
 from tf_operator_tpu_torch.parallel import sharding
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

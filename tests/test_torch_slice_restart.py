@@ -47,6 +47,7 @@ from tf_operator_tpu.metrics import Metrics
 from tf_operator_tpu.runtime.tpu_init import topology_from_env as jax_topology_from_env
 from tf_operator_tpu_torch.api import gpu
 from tf_operator_tpu_torch.runtime import gpu_init, heartbeat, launch
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CHILD_ENV = {"PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}

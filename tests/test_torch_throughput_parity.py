@@ -23,6 +23,7 @@ import subprocess
 import sys
 
 import pytest
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
 PARITY_MIN_RATIO = 0.2  # the JAX test's CPU/gloo bound
 STEPS, WARMUP, GLOBAL_BATCH, SEQ = 40, 3, 8, 64

@@ -25,6 +25,7 @@ import torch
 from tf_operator_tpu.runtime import profiling as jax_profiling
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.runtime import profiling
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import llama_train
 
 ARGS = ["--device", "cpu", "--model", "llama-tiny", "--batch", "4", "--seq", "32",

@@ -42,6 +42,7 @@ import torch
 from tf_operator_tpu.train import train_step as jax_ts
 from tf_operator_tpu_torch.models import llama
 from tf_operator_tpu_torch.ops import cross_entropy
+from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 from tf_operator_tpu_torch.train import data, llama_train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -149,8 +150,9 @@ def _jax_loss(inputs):
         return jax_ts.chunked_cross_entropy(hidden, kernel, jnp.asarray(inputs["targets"]),
                                             chunk=LOSS_SHAPE["chunk"])
 
-    value, (dh, dk) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))(
-        inputs["hidden"], inputs["weight"].T)
+    # XLA's backend optimisations cost compile time and buy nothing here.
+    value, (dh, dk) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)), compiler_options={
+        "xla_backend_optimization_level": 0})(inputs["hidden"], inputs["weight"].T)
     return float(value), np.asarray(dh), np.asarray(dk).T
 
 

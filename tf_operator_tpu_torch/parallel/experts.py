@@ -34,8 +34,10 @@ combine einsums constrained to ``moe_expert_axes``).
   same over the all-to-all's group.
 
 ``COUNTS["all_to_all"]`` counts the all-to-alls run (forward, a remat
-replay's forward and backward each count one), as ``ops/build.LAUNCHES``
-counts kernel launches.
+replay's forward and backward each count one), and ``COUNTS["tp"]`` the
+all-reduces over ``tp`` (the ``w2`` product's in each forward, the
+input's gradient in the backward), as ``ops/build.LAUNCHES`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-COUNTS = {"all_to_all": 0}
+COUNTS = {"all_to_all": 0, "tp": 0}
 
 
 def reset_counts() -> None:
@@ -82,7 +84,9 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, count: Optional[str] = None) -> torch.Tensor:
+    if count is not None:
+        COUNTS[count] += 1
     out = x.clone()
     dist.all_reduce(out, group=group)
     return out
@@ -116,11 +120,11 @@ class _SumBoth(torch.autograd.Function):
 
 
 class _SumForward(torch.autograd.Function):
-    """All-reduce (sum) forward, identity backward."""
+    """All-reduce (sum) over tp forward, identity backward."""
 
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group)
+        return _all_reduce(x, group, "tp")
 
     @staticmethod
     def backward(ctx, dy):
@@ -128,19 +132,20 @@ class _SumForward(torch.autograd.Function):
 
 
 class _SumBackward(torch.autograd.Function):
-    """Identity forward; the gradient scaled, then summed over ``group``."""
+    """Identity forward; the gradient scaled, then summed over ``group``
+    (counted under ``count``)."""
 
     @staticmethod
-    def forward(ctx, x, group, scale):
-        ctx.group, ctx.scale = group, scale
+    def forward(ctx, x, group, scale, count=None):
+        ctx.group, ctx.scale, ctx.count = group, scale, count
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, dy):
         dy = dy * ctx.scale if ctx.scale != 1.0 else dy
         if ctx.group is not None:
-            dy = _all_reduce(dy, ctx.group)
-        return dy, None, None
+            dy = _all_reduce(dy, ctx.group, ctx.count)
+        return dy, None, None, None
 
 
 def to_owners(x: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
@@ -171,7 +176,7 @@ def expert_weight(w: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
 
 
 def copy_to_tp(x: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
-    return x if layout.tp_group is None else _SumBackward.apply(x, layout.tp_group, 1.0)
+    return x if layout.tp_group is None else _SumBackward.apply(x, layout.tp_group, 1.0, "tp")
 
 
 def reduce_from_tp(x: torch.Tensor, layout: ExpertLayout) -> torch.Tensor:
