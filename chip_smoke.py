@@ -211,17 +211,39 @@ Phases (any failure raises and the script exits non-zero):
       16, 64] non-causal, and bert_train --model bert-large for 4 steps;
       resnet18 card against CPU at phase p's tolerances and through
       resnet_train at 224x224, global batch 256 (images/s, MFU, peak
-      memory).
+      memory);
+  (v) the flash kernels at the head dims other than 64 and 128
+      (:func:`phase_v`): phase c's checks in all of CASES with d replaced
+      by 16, 32 (the 64-wide instances), 80, 96 (the 128-wide ones, their
+      tiles' last columns zero-filled), 192 and 256 (the 256-wide ones; at
+      192 a whole 64-column box lies past the head dim), each timed at
+      [8, 2048, 8, D] causal beside SDPA, the bound at the true D; a
+      2-layer llama-tiny of 4 heads of each D trained 2 steps through the
+      entry point (launches a step on the instance that serves D); the JAX
+      package's tiny configurations (llama-tiny, moe-tiny, bert-tiny: head
+      dim 16) card against CPU at PARITY_TOL, and 4 steps on the CPU and
+      on the card from the same weights (llama_train; BERT's bench path),
+      their losses within PARITY_TOL's loss share, the card's launches on
+      the _d64 kernels; llama-400m's widths as 4 heads of 256 (a
+      ``LlamaConfig`` built in the phase) through the entry point at bs 8,
+      seq 2048, 4 steps (step time, tokens/s, MFU, peak memory, 24 of each
+      d256 kernel a step) against the same weights under the plain "xla"
+      attention (losses within LOSS_TOL), and one row's backward against
+      an fp32 CPU run: the kernels' gradients no further from it than the
+      xla run's plus GRAD_TOL, and the same for llama-400m's own 8 x 128
+      (:func:`grads_against_fp32`).
 
-Phases e-m, u and t's in-process run each reset the launch counters just
-before their runs and read them just after; the launched runs of q, r and
+Phases e-m, u, v and t's in-process run each reset the launch counters
+just before their runs and read them just after; the launched runs of q, r and
 t count in their own processes and report the counts in their ``[llama]
 done`` summaries.
 The last lines are the nvidia-smi line, one JSON line of
 per-kernel results (launches from phase e, from phase k's einsum run for
 the entries named "...[moe-125m]", timed at its shapes, from phase l's
 window for the "..._d64" entries, timed at bert-base's, and from phase u's
-runs for the entries named "...[llama-1b]" and "..._d64[bert-large]"), and
+runs for the entries named "...[llama-1b]" and "..._d64[bert-large]", and
+from phase v's runs for those named "...[d<head_dim>]": the 4 x 256 model's
+at 256, the 2-layer model's of that head dim otherwise), and
 {"ok": true, "device": {...}}.
 """
 
@@ -622,31 +644,41 @@ def card_cpu_parity(label: str, model_cls, cfg, tokens) -> None:
     torch.cuda.empty_cache()
 
 
-def expected_launches(policy: str, layers: int) -> dict:
+def expected_launches(policy: str, layers: int, head_dim: int = 128,
+                       remat: bool = True, attention: str = "pallas") -> dict:
     """Kernel launches per training step: the forward's two ropes and one
     flash forward per layer, the backward's two ropes, dQ and dK/dV, and
-    the replay of what the policy does not save."""
-    saved = set(policy.split("+"))
-    return {"rope": (4 if "rope" in saved else 6) * layers,
-            "flash_fwd": (1 if "dots" in saved else 2) * layers,
-            "flash_dq": layers, "flash_dkv": layers,
-            "flash_fwd_d64": 0, "flash_dq_d64": 0, "flash_dkv_d64": 0}
+    the replay of what the policy does not save (nothing without remat),
+    on the flash instance that serves ``head_dim`` (none under the plain
+    "xla" attention); every other kernel 0."""
+    from tf_operator_tpu_torch.ops import build, flash
+
+    saved = set(policy.split("+")) if remat else {"dots", "rope"}
+    want = dict.fromkeys(build.KERNELS, 0)
+    want["rope"] = (4 if "rope" in saved else 6) * layers
+    if attention != "xla":
+        want[flash.kernel_name("flash_fwd", head_dim)] = (1 if "dots" in saved else 2) * layers
+        want[flash.kernel_name("flash_dq", head_dim)] = layers
+        want[flash.kernel_name("flash_dkv", head_dim)] = layers
+    return want
 
 
-def train_run(build, peak, phase: str, argv: list) -> dict:
-    """One llama_train run with the launch counters and the peak device
-    memory reset just before it and read just after; prints and returns
-    losses, the step time of its window (from the host's read of the first
-    step's loss to its read of the last's), tokens/s, MFU, peak memory and
-    launches."""
+def train_run(build, peak, phase: str, argv: list, config=None) -> dict:
+    """One llama_train run (of ``config`` in place of its ``--model``'s,
+    when given) with the launch counters and the peak device memory reset
+    just before it and read just after; prints and returns losses, the
+    step time of its window (from the host's read of the first step's loss
+    to its read of the last's), tokens/s, MFU, peak memory and launches."""
     from tf_operator_tpu_torch.train import llama_train
 
     gc.collect()
     torch.cuda.empty_cache()
     args = llama_train.parse_args(argv)
+    setup = llama_train.setup(args, config=config) if config is not None else None
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    out = llama_train.run(args)
+    out = llama_train.run(args, setup)
+    del setup
     out["launches"] = dict(build.LAUNCHES)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     steps = len(out["losses"])
@@ -668,7 +700,8 @@ def train_run(build, peak, phase: str, argv: list) -> dict:
         f"per step {out['per_step']}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"non-finite loss {out['losses']}")
-    want = expected_launches(policy, out["config"].n_layers)
+    cfg = out["config"]
+    want = expected_launches(policy, cfg.n_layers, cfg.head_dim, cfg.remat, cfg.attention_impl)
     if out["per_step"] != want:
         raise AssertionError(f"launches per step {out['per_step']}, expected {want}")
     return out
@@ -978,12 +1011,12 @@ def moe_grads(cfg, tokens, device="cuda", routes=None, state=None):
     return loss.item(), grads
 
 
-def moe_parity(tokens) -> None:
-    """Two layers at full width: the card (kernels, bf16) against the CPU
-    (plain versions, fp32), from the same weights."""
+def moe_parity(tokens, cfg=None, label: str = "k") -> None:
+    """Two layers at full width (or ``cfg``): the card (kernels, bf16)
+    against the CPU (plain versions, fp32), from the same weights."""
     from tf_operator_tpu_torch.models import llama
 
-    cfg = moe_config(n_layers=2)
+    cfg = cfg or moe_config(n_layers=2)
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
     state = llama.Llama(cpu_cfg, device="cpu",
                         generator=torch.Generator().manual_seed(0)).state_dict()
@@ -995,7 +1028,8 @@ def moe_parity(tokens) -> None:
     t2 = time.perf_counter()
     flipped = [(card_routes[i] != cpu_routes[i]).float().mean().item() for i in cpu_routes]
     rel_loss = rel(card_loss, cpu_loss)
-    log(f"[k] parity at 2 layers: loss card {card_loss:.6f} cpu {cpu_loss:.6f}, rel "
+    log(f"[{label}] parity at {cfg.n_layers} layers: loss card {card_loss:.6f} cpu "
+        f"{cpu_loss:.6f}, rel "
         f"{rel_loss:.3e} (tol {PARITY_TOL['loss']}); share of (token, rank) routes whose "
         f"expert differs per layer {flipped} (card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s)")
     if not rel_loss <= PARITY_TOL["loss"]:
@@ -1007,7 +1041,8 @@ def moe_parity(tokens) -> None:
         if r >= worst.get(routed, (0.0, ""))[0]:
             worst[routed] = (r, name)
     (dense, dense_name), (routed, routed_name) = worst[False], worst[True]
-    log(f"[k] parity at 2 layers: worst grad-norm rel {dense:.3e} at {dense_name} (tol "
+    log(f"[{label}] parity at {cfg.n_layers} layers: worst grad-norm rel {dense:.3e} at "
+        f"{dense_name} (tol "
         f"{PARITY_TOL['grad_norm']}); experts and router {routed:.3e} at {routed_name} "
         f"(tol {MOE_ROUTED_TOL})")
     if not dense <= PARITY_TOL["grad_norm"] or not routed <= MOE_ROUTED_TOL:
@@ -2325,6 +2360,219 @@ def phase_u(build, peak, flash, rope_mod) -> dict:
     return results
 
 
+# Phase (v): the flash kernels at head dims that are multiples of 16 other
+# than 64 and 128. 16 and 32 go to the 64-wide instances, 80 and 96 to the
+# 128-wide ones with their tiles' last columns zero-filled, 192 and 256 to
+# the 256-wide ones (at 192 the last 64-column box lies wholly past the
+# head dim). Each head dim also trains a 2-layer llama-tiny of 4 heads of
+# it (its launches a step are the kernels line's); the JAX package's tiny
+# configurations (head_dim 16) run card against CPU; llama-400m's widths
+# regrouped as 4 heads of 256 train at phase e's batch and sequence.
+HEAD_DIMS_V = (16, 32, 80, 96, 192, 256)
+SWEEP_ARGS = ["--model", "llama-tiny", "--batch", "8", "--seq", "128", "--steps", "2",
+              "--log-every", "100", "--warmup", "1"]
+TINY_STEPS = 4
+D256_HEADS = dict(n_heads=4, n_kv_heads=4)  # llama-400m's dim 1024 as 4 heads of 256
+
+
+def tiny_steps(name: str, device: str, weights=None) -> tuple[list, dict, dict]:
+    """TINY_STEPS steps of ``name`` on ``device``, from ``weights`` (a state
+    dict; by default seed 0's draw on the device), with the launch counters
+    reset just before: llama-tiny and moe-tiny through llama_train (its
+    setup and run, the synthetic batches), bert-tiny through the bench path
+    (``make_train_step`` with the next-token ``loss_fn``, no padding mask,
+    so that attention runs the flash kernels, as phase l's) on seeded
+    batches. Returns the losses, the launches a step and the weights the
+    run started from, on the CPU."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.models import bert
+    from tf_operator_tpu_torch.ops import build
+    from tf_operator_tpu_torch.train import llama_train
+    from tf_operator_tpu_torch.train.train_step import (
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    if name.startswith("bert"):
+        cfg = bert.CONFIGS[name]
+        model = bert.Bert(cfg, device=device, generator=torch.Generator(device).manual_seed(0))
+    else:
+        args = llama_train.parse_args(["--model", name, "--batch", "8", "--seq", "128",
+                                       "--steps", str(TINY_STEPS), "--log-every", "100",
+                                       "--warmup", "1", "--device", device])
+        setup = llama_train.setup(args)
+        model = setup.state.model
+    if weights is not None:
+        model.load_state_dict(weights)
+    start = {k: t.detach().to("cpu", copy=True) for k, t in model.state_dict().items()}
+    if name.startswith("bert"):
+        optimizer = make_optimizer(warmup_steps=1, decay_steps=1000)
+        state, step_fn = init_train_state(model, optimizer), make_train_step(optimizer)
+        rng = np.random.default_rng(16)
+        batches = [rng.integers(0, cfg.vocab_size, (8, cfg.max_len + 1), dtype=np.int32)
+                   for _ in range(TINY_STEPS)]
+        build.reset_launches()
+        losses = []
+        for batch in batches:
+            state, loss = step_fn(state, batch)
+            losses.append(float(loss))
+    else:
+        build.reset_launches()
+        losses = llama_train.run(args, setup)["losses"]
+    per_step = {k: n / TINY_STEPS for k, n in build.LAUNCHES.items()}
+    return losses, per_step, start
+
+
+def tiny_parity(build) -> None:
+    """llama-tiny, moe-tiny and bert-tiny (head_dim 16, the 64-wide
+    instances): one loss and its gradients card (bf16) against CPU (fp32)
+    at PARITY_TOL (moe-tiny's experts and router at MOE_ROUTED_TOL), then
+    TINY_STEPS steps on the CPU (plain versions, the config's bf16) and on
+    the card from the CPU model's weights (:func:`tiny_steps`), their
+    losses within PARITY_TOL's loss share; the card's launches a step must
+    be expected_launches' on the _d64 kernels."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.models import bert, llama
+
+    rng = np.random.default_rng(16)
+    for name in ("llama-tiny", "moe-tiny", "bert-tiny"):
+        is_bert = name.startswith("bert")
+        cfg = (bert.CONFIGS if is_bert else llama.CONFIGS)[name]
+        seq = cfg.max_len if is_bert else cfg.max_seq_len
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, seq + 1))).long()
+        if getattr(cfg, "n_experts", 0):
+            moe_parity(tokens, cfg, "v")
+        else:
+            card_cpu_parity("v", bert.Bert if is_bert else llama.Llama, cfg, tokens)
+        cpu, _, start = tiny_steps(name, "cpu")
+        card, per_step, _ = tiny_steps(name, "cuda", start)
+        worst = max(rel(a, b) for a, b in zip(card, cpu))
+        log(f"[v] {name} {TINY_STEPS} steps: losses card {card} cpu {cpu}, worst rel "
+            f"{worst:.3e} (tol {PARITY_TOL['loss']}); card launches a step {per_step}")
+        if len(card) != len(cpu) or not worst <= PARITY_TOL["loss"]:
+            raise AssertionError(f"{name}: card losses {card} against the CPU's {cpu}")
+        want = expected_launches("dots", cfg.n_layers, cfg.dim // cfg.n_heads, cfg.remat)
+        if is_bert:  # no rope
+            want["rope"] = 0
+        if per_step != want:
+            raise AssertionError(f"{name}: launches a step {per_step}, expected {want}")
+        gc.collect()
+
+
+def row_grads(argv: list, cfg, device: str = "cuda", weights=None) -> tuple[float, dict, dict]:
+    """(loss, {name: fp32 gradient on the CPU}, the weights on the CPU) of
+    one forward and backward of the entry point's model of ``cfg`` (seed
+    0's draw, or ``weights``) on ``device``, on the first row of its first
+    batch."""
+    from tf_operator_tpu_torch.train import llama_train
+    from tf_operator_tpu_torch.train.train_step import loss_fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    s = llama_train.setup(llama_train.parse_args([*argv, "--device", device]), config=cfg)
+    model = s.state.model
+    if weights is not None:
+        model.load_state_dict(weights)
+    loss = loss_fn(model, torch.as_tensor(next(s.dataset))[:1].to(device).long())
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    weights = {k: t.detach().cpu() for k, t in model.state_dict().items()}
+    del s, model
+    return loss.item(), grads, weights
+
+
+def worst_rel(got: dict, ref: dict) -> tuple[float, str]:
+    """The largest relative L2 distance of a gradient from its reference,
+    and its parameter's name."""
+    return max((((g - ref[n]).norm() / ref[n].norm().clamp(min=1e-30)).item(), n)
+               for n, g in got.items())
+
+
+def grads_against_fp32(argv: list, cfg, what: str) -> None:
+    """One backward of ``cfg`` on the card through the kernels and through
+    the plain "xla" attention (both bf16), and on the CPU in fp32 ("xla",
+    the same weights): one row of the first batch. Two bf16 backwards of 24
+    layers round at other places and differ by about 2.5e-2 (rel L2)
+    whatever their attention, at 8 x 128 as at 4 x 256, so the kernels'
+    gradients are held to the fp32 ones: no further than the xla run's,
+    plus GRAD_TOL; the loss within LOSS_TOL of fp32's."""
+    xla_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    fp32_cfg = dataclasses.replace(xla_cfg, dtype=torch.float32, param_dtype=torch.float32)
+    loss_f, flash_g, weights = row_grads(argv, cfg)
+    loss_x, xla_g, _ = row_grads(argv, xla_cfg, weights=weights)
+    t0 = time.perf_counter()
+    loss_32, ref_g, _ = row_grads(argv, fp32_cfg, "cpu", weights)
+    gap, gap_name = worst_rel(flash_g, xla_g)
+    err_f, name_f = worst_rel(flash_g, ref_g)
+    err_x, name_x = worst_rel(xla_g, ref_g)
+    log(f"[v] {what}, one row's backward: losses flash {loss_f:.6f} xla {loss_x:.6f} fp32 "
+        f"{loss_32:.6f} (cpu {time.perf_counter() - t0:.1f} s); worst gradient rel L2 flash "
+        f"against xla {gap:.3e} at {gap_name}; against fp32: flash {err_f:.3e} at {name_f}, "
+        f"xla {err_x:.3e} at {name_x} (flash held to xla's + {GRAD_TOL})")
+    if not rel(loss_f, loss_32) <= LOSS_TOL or not err_f <= err_x + GRAD_TOL:
+        raise AssertionError(f"{what}: the kernels' loss {loss_f} or gradients (rel L2 "
+                             f"{err_f:.3e} at {name_f}) stray from fp32's {loss_32} beyond "
+                             f"the xla run's {err_x:.3e} + {GRAD_TOL}")
+    del flash_g, xla_g, ref_g, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_v(build, peak, flash, rope_mod) -> dict:
+    """Phase c's checks and timings at every head dim of HEAD_DIMS_V; a
+    2-layer model of each trained 2 steps (launches a step); the tiny
+    configurations card against CPU (:func:`tiny_parity`); llama-400m as 4
+    heads of 256 at bs 8, seq 2048, 4 steps (step time, tokens/s, MFU,
+    peak memory, launches a step) with its losses within LOSS_TOL of the
+    same model and weights under the plain "xla" attention on the card,
+    and one backward's gradients held to fp32, as llama-400m's own 8 x 128
+    are (:func:`grads_against_fp32`).
+    Returns the kernels' entries, named "<counter>[d<head_dim>]"."""
+    from tf_operator_tpu_torch.models import llama
+
+    results = {}
+    for d in HEAD_DIMS_V:
+        cases = {f"{name}_d{d}": dict(c, d=d) for name, c in CASES.items()}
+        for kernel, res in phase_c(flash, rope_mod, peak, cases, main=f"main_d{d}",
+                                   label="v").items():
+            res["counter"] = kernel if kernel == "rope" else flash.kernel_name(kernel, d)
+            res["name"] = f"{res['counter']}[d{d}]"
+            res["head_dim"] = d
+            results[res["name"]] = res
+        gc.collect()
+        torch.cuda.empty_cache()
+    # llama-tiny (4 heads, 2 KV heads, 2 layers) at each head dim.
+    runs = {d: train_run(build, peak, "v", SWEEP_ARGS, config=dataclasses.replace(
+                llama.CONFIGS["llama-tiny"], dim=4 * d, ffn_dim=8 * d))
+            for d in HEAD_DIMS_V}
+    tiny_parity(build)
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama-400m"], **D256_HEADS)
+    argv = [*MAIN_ARGS, "--steps", "4"]
+    full = train_run(build, peak, "v", argv, config=cfg)
+    xla_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    xla = train_run(build, peak, "v", argv, config=xla_cfg)
+    launched = {k: n for k, n in full["per_step"].items() if n}
+    log(f"[v] llama-400m as 4 heads x 256 ({cfg.param_count():,} parameters): step "
+        f"{full['step_s']:.4f} s, tokens/s {full['tokens_per_s']:.1f}, MFU {full['mfu']:.4f}, "
+        f"peak {full['peak_gib']:.3f} GiB, launches a step {launched}; under the plain xla "
+        f"attention step {xla['step_s']:.4f} s, peak {xla['peak_gib']:.3f} GiB")
+    if abs(full["losses"][0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {full['losses'][0]} is far from ln(vocab)")
+    check_losses("v", "4 x 256 flash kernels against xla", full["losses"], xla["losses"])
+    del xla
+    grads_against_fp32(argv, cfg, "4 x 256")
+    grads_against_fp32(argv, llama.CONFIGS["llama-400m"], "llama-400m, 8 x 128")
+    for res in results.values():
+        run = full if res["head_dim"] == 256 else runs[res["head_dim"]]
+        res["launches"] = run["launches"][res["counter"]]
+        res["launches_per_step"] = run["per_step"][res["counter"]]
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2371,6 +2619,7 @@ def main() -> int:
     phase_s()
     phase_t(build, peak, main)
     configs = phase_u(build, peak, flash, rope_mod)
+    head_dims = phase_v(build, peak, flash, rope_mod)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]
@@ -2380,7 +2629,8 @@ def main() -> int:
 
     log(smi_line())
     log(json.dumps({"kernels": list(results.values()) + list(moe.values())
-                    + list(d64.values()) + list(configs.values())}))
+                    + list(d64.values()) + list(configs.values())
+                    + list(head_dims.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

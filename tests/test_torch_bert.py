@@ -206,6 +206,28 @@ def test_loss_fn_loss_and_grads_match_jax():
     assert np.linalg.norm(grads["mlm_bias"]) > 0
 
 
+@pytest.mark.parametrize("head_dim", [80])
+def test_loss_fn_at_another_head_dim_matches_jax(head_dim):
+    """BERT of 2 heads of ``head_dim`` (on the card, the flash kernels'
+    128-wide instance with its tiles' last columns zero): the bench's loss
+    and its gradients against the JAX package's at the same tolerances."""
+    jcfg, tcfg = configs(dim=2 * head_dim, n_heads=2)
+    jmodel = jax_bert.Bert(jcfg)
+    params = moved({"params": jax.tree.map(
+        np.asarray, jax_bert.init_params(jmodel, jax.random.PRNGKey(1), seq=SEQ))})
+    loss_and_grads = jax.jit(jax.value_and_grad(
+        lambda p: jax_ts.loss_fn(jmodel, p, LM_BATCH))).lower(params).compile(
+            {"xla_backend_optimization_level": 0})
+    ref_loss, ref_grads = loss_and_grads(params)
+    model = bert.Bert(tcfg, device="cpu")
+    model.load_state_dict(convert.bert_flax_to_state_dict(jax.tree.map(np.asarray, params)))
+    assert model.layers[0].attention.query.weight.shape == (2 * head_dim, 2 * head_dim)
+    loss, grads = port_loss_and_grads(model)
+    assert loss == pytest.approx(float(ref_loss), rel=1e-5)
+    assert_grads(grads, {n: t.numpy() for n, t in convert.bert_flax_to_state_dict(
+        jax.tree.map(np.asarray, ref_grads)).items()})
+
+
 def test_adamw_steps_match_optax():
     """train_step.adamw is optax.adamw: constant learning rate, no clip,
     b2 0.999, eps 1e-8, decay on every parameter."""

@@ -24,7 +24,10 @@ from tf_operator_tpu_torch.ops import flash
 from tf_operator_tpu_torch.ops.attention import xla_attention
 from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401 (autouse)
 
-pallas = functools.partial(flash_attention_pallas, interpret=True)
+# The JAX references run jitted: the Pallas interpreter traced once into
+# one XLA program costs about half of its op-by-op run.
+pallas = jax.jit(functools.partial(flash_attention_pallas, interpret=True),
+                 static_argnames=("causal", "block_q", "block_k"))
 
 
 def rand_qkv(seed, batch, seq, heads, kv_heads, dim):
@@ -97,7 +100,8 @@ def test_bf16_forward():
 def test_forward_lse_matches_pallas():
     arrays = rand_qkv(4, 1, 128, 4, 2, 32)
     o, lse = flash.flash_attention_with_lse(*to_torch(arrays), block_q=64, block_k=64)
-    ro, rlse = jax_flash_with_lse(*to_jax(arrays), block_q=64, block_k=64, interpret=True)
+    ro, rlse = jax.jit(functools.partial(jax_flash_with_lse, block_q=64, block_k=64,
+                                         interpret=True))(*to_jax(arrays))
     assert tuple(lse.shape) == (1, 4, 128)
     np.testing.assert_allclose(f32(o), f32(ro), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(f32(lse), f32(rlse), atol=2e-5, rtol=2e-5)
@@ -123,7 +127,7 @@ def jax_grads(fn, arrays, w, dtype=jnp.float32):
     def loss(q, k, v):
         return jnp.sum(fn(q, k, v).astype(jnp.float32) * w)
 
-    return jax.grad(loss, argnums=(0, 1, 2))(*to_jax(arrays, dtype))
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*to_jax(arrays, dtype))
 
 
 def assert_grads(got, ref, tol):
@@ -183,15 +187,48 @@ def test_grads_match_pallas_head_dim_64(causal):
 
 
 def test_kernels_take_head_dims_64_and_128_only():
-    """The kernel wrappers refuse any other head dim before they launch,
-    and count each head dim's kernel apart."""
-    for d in flash.KERNEL_HEAD_DIMS:
+    """Head dims 64 and 128 keep their own instances and the counter names
+    they had (flash_*_d64 and flash_*); an off-rule head dim is refused
+    before a launch."""
+    for d in (64, 128):
         t = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
         flash._check_kernel_qkv(t, t, t, causal=True)
-    t = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\), not 32"):
+    t = torch.zeros(1, 64, 2, 24, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"multiple of 16 from 16 to 256, not 24"):
         flash._check_kernel_qkv(t, t, t, causal=True)
     assert [flash.kernel_name("flash_dq", d) for d in (128, 64)] == ["flash_dq", "flash_dq_d64"]
+
+
+@pytest.mark.parametrize("taken", [True, False], ids=["taken", "refused"])
+def test_kernel_head_dim_rule(taken):
+    """The kernels take a head_dim that is a multiple of 16 from 16 to 256
+    (16, 80 and 256 here) and refuse any other (8, 24, 272) before a
+    launch, naming the rule and its ROADMAP item; each head dim counts on
+    the instance that serves it, and flash_work counts the true head dim,
+    not the instance's width."""
+    if not taken:
+        for d in (8, 24, 272):
+            t = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+            with pytest.raises(ValueError, match=rf"multiple of 16 from 16 to 256, not {d} "
+                                                 r"\(ROADMAP.md, Queue 2"):
+                flash._check_kernel_qkv(t, t, t, causal=True)
+            with pytest.raises(ValueError, match="multiple of 16"):
+                flash.kernel_name("flash_dkv", d)
+        return
+    for d in (16, 80, 256):
+        t = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+        flash._check_kernel_qkv(t, t, t, causal=True)
+    names = {d: flash.kernel_name("flash_dkv", d) for d in (16, 32, 64, 80, 96, 128, 144, 256)}
+    assert names == {16: "flash_dkv_d64", 32: "flash_dkv_d64", 64: "flash_dkv_d64",
+                     80: "flash_dkv", 96: "flash_dkv", 128: "flash_dkv",
+                     144: "flash_dkv_d256", 256: "flash_dkv_d256"}
+    w80, w128 = (flash.flash_work(2, 256, 256, 8, 2, d, True) for d in (80, 128))
+    for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert w80[kernel].flops * 128 == w128[kernel].flops * 80
+    pairs = 2 * 8 * 256 * 257 // 2
+    assert w80["flash_fwd"].flops == 4 * pairs * 80
+    assert w80["flash_fwd"].bytes == 2 * (2 * 2 * 256 * 8 * 80 + 2 * 2 * 256 * 2 * 80) \
+        + 4 * 2 * 8 * 256
 
 
 def test_dlse_cotangent_matches_pallas():
@@ -208,5 +245,5 @@ def test_dlse_cotangent_matches_pallas():
         o, lse = jax_flash_with_lse(q, k, v, block_q=64, block_k=64, interpret=True)
         return jnp.sum(o * wo) + jnp.sum(lse * wl)
 
-    ref = jax.grad(loss, argnums=(0, 1, 2))(*to_jax(arrays))
+    ref = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*to_jax(arrays))
     assert_grads([q.grad, k.grad, v.grad], ref, 3e-5)

@@ -22,12 +22,17 @@ from tf_operator_tpu_torch.testing.threads import one_torch_thread  # noqa: F401
 
 NARROW = dict(vocab_size=512, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
               ffn_dim=512, max_seq_len=64)
+# Two heads of 256: the head dim of the flash kernels' widest instance.
+NARROW_HD256 = dict(vocab_size=256, dim=512, n_layers=2, n_heads=2, n_kv_heads=1,
+                    ffn_dim=512, max_seq_len=64)
+NARROWS = {"narrow_hd128": NARROW, "narrow_hd256": NARROW_HD256}
 
 
 def configs(name, fp32):
     """(JAX config, port config) of the same model."""
-    if name == "narrow_hd128":
-        jcfg, tcfg = jax_llama.LlamaConfig(**NARROW), llama.LlamaConfig(**NARROW)
+    if name in NARROWS:
+        jcfg = jax_llama.LlamaConfig(**NARROWS[name])
+        tcfg = llama.LlamaConfig(**NARROWS[name])
     else:
         jcfg, tcfg = jax_llama.CONFIGS[name], llama.CONFIGS[name]
     if fp32:
@@ -86,7 +91,7 @@ def test_bf16_leaves_convert_exactly():
     np.testing.assert_array_equal(got.detach().float().numpy(), leaf.astype(np.float32))
 
 
-@pytest.mark.parametrize("name", ["llama-tiny", "narrow_hd128"])
+@pytest.mark.parametrize("name", ["llama-tiny", "narrow_hd128", "narrow_hd256"])
 def test_logits_hidden_and_grads_match_fp32(name):
     jmodel, params, tmodel, tokens = build(name)
     w = np.random.default_rng(2).standard_normal(

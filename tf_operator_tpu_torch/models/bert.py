@@ -10,9 +10,10 @@ scale and bias, and cast back to ``cfg.dtype`` where the JAX model does.
 GELU is the tanh approximation, Flax's ``nn.gelu`` default.
 
 Attention: with no padding mask and ``attention_impl == "pallas"`` the
-non-causal flash kernels (``ops/flash.py``: head_dim 64 at every BERT
-config; their plain versions on a CPU tensor); otherwise the plain
-reference attention with the additive bias ``where(mask, 0, -1e9)``.
+non-causal flash kernels (``ops/flash.py``: head_dim 64 at bert-base and
+bert-large, 16 at bert-tiny; their plain versions on a CPU tensor);
+otherwise the plain reference attention with the additive bias
+``where(mask, 0, -1e9)``.
 
 Parameter names follow the JAX model's tree (``tok_embeddings`` for
 ``tok_embed``, ``layers.{i}`` for ``layer_{i}``, ``attention.query`` ...

@@ -37,9 +37,12 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-# The flash kernels at head_dim 128, then their head_dim-64 instances.
+# The flash kernels' 128-wide instances (head_dim 80 to 128), then their
+# 64-wide (16 to 64) and 256-wide (144 to 256) ones (ops/flash.py
+# kernel_name).
 KERNELS = ("rope", "flash_fwd", "flash_dq", "flash_dkv",
-           "flash_fwd_d64", "flash_dq_d64", "flash_dkv_d64")
+           "flash_fwd_d64", "flash_dq_d64", "flash_dkv_d64",
+           "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()

@@ -15,24 +15,38 @@
 // 128, causal) it does 4 products, 137.5 GFLOP; at bert-base (bs 16, seq
 // 512, 12 heads x 64, non-causal) 25.8 GFLOP against 76.3 MB.
 //
-// Design (sm_90a, the building blocks in hopper.cuh). One kernel for each
-// head_dim, 64 and 128 (the template argument kD). One block per (128
-// keys, KV head, batch), two warpgroups of 64 key rows each, in the
-// transposed frame so that each warpgroup owns its key rows end to end.
+// Design (sm_90a, the building blocks in hopper.cuh). Three instances,
+// the template argument kD: kD = 64 serves head_dim 16..64, 128 serves
+// 80..128 and 256 serves 144..256 (multiples of 16). The tensor maps carry
+// the true head_dim, so TMA zero-fills the tile columns past it on every
+// load and clips them on the stores of dK and dV (hopper.cuh, "Head
+// dims"); lse and delta are per query, not per column. At kD 64 and 128,
+// one block per (128 keys, KV head, batch), two warpgroups of 64 key rows
+// each, in the transposed frame so that each warpgroup owns its key rows
+// end to end. At 256 a warpgroup's dK and dV over the whole head dim
+// would be 2 x 128 fp32 a thread, past the 255 registers a thread may
+// have, and 128 keys of K and V take 128 KB. So a block holds 64 keys and
+// its two warpgroups split the head dim instead: each computes the same
+// S^T and dP^T over all 256 columns (the two score products done twice,
+// 6 products' work where 4 would do) and accumulates dK and dV on its own
+// 128 columns (64 + 64 fp32 a thread, as at kD 128). One launch, no
+// second pass over Q and dO, and no exchange between the warpgroups;
+// shared memory K 32 + V 32 + 2 stages x (Q 32 + dO 32) = 192 KB.
 // - Thread 0 loads the block's K and V tiles once. Then warp 0 streams, for
 //   every query head of the group and every Q tile of 64 rows from the
 //   diagonal on, the Q and dO tiles by TMA and the tile's 64 lse and delta
-//   values by cp.async into a 3-stage ring, a tile ahead of its use, each
-//   stage completing on an mbarrier. The GQA sum therefore stays inside the
+//   values by cp.async into a ring (3 stages, 2 at kD 256), a tile ahead of
+//   its use, each stage completing on an mbarrier. The GQA sum therefore stays inside the
 //   block, with no atomics and no second pass.
 // - S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with both operands
 //   K-major from the swizzled tiles. P^T = exp2(S^T * scale * log2 e - lse
 //   * log2 e) and dS^T = P^T (dP^T - delta) run on the accumulator
 //   registers, lse and delta broadcast per column (query).
 // - dV += P^T dO and dK += dS^T Q are wgmma m64n128k16 (m64n64k16 at
-//   head_dim 64) with A from registers (P^T and dS^T cast to bf16 pairs)
-//   and B the same dO and Q tiles read MN-major. dK and dV (64 + 64 fp32 a
-//   thread, 32 + 32 at head_dim 64) stay in registers: with 256
+//   kD 64; at 256 on the warpgroup's 128 columns) with A from registers
+//   (P^T and dS^T cast to bf16 pairs) and B the same dO and Q tiles read
+//   MN-major. dK and dV (64 + 64 fp32 a thread, 32 + 32 at kD 64) stay in
+//   registers: with 256
 //   threads a block may use 255 registers a thread, and this kernel needs
 //   about 230. (With a third, producer warpgroup the compiler held every
 //   thread to 168 and spilled; setmaxnreg did not lift that.)
@@ -41,9 +55,11 @@
 //   the diagonal (or the ragged end of the queries) are masked, and the
 //   blocks with the most Q tiles launch first.
 // - Epilogue: dK * scale and dV to bf16, staged in the warpgroup's own K
-//   and V rows and written by TMA store (rows past the end are not
-//   written).
-// Shared memory 163 KB at head_dim 128 (82 KB at 64): one block an SM.
+//   and V rows (at kD 256, its own columns of the block's K and V rows,
+//   once both warpgroups are done with them) and written by TMA store
+//   (rows past the end and columns past the head dim are not written).
+// Shared memory 163 KB at kD 128, 82 KB at 64 and 194 KB at 256: one block
+// an SM.
 
 #include "hopper.cuh"
 
@@ -54,30 +70,38 @@ using namespace hopper;
 
 constexpr int kRowsWG = 64;                    // key rows of a consumer warpgroup
 constexpr int kConsumers = 2;                  // consumer warpgroups
-constexpr int kBlockN = kRowsWG * kConsumers;  // keys of a block
 constexpr int kBlockM = 64;                    // queries of a Q tile
-constexpr int kStages = 3;
-constexpr int kLead = kStages - 2;  // Q tiles loaded ahead of the one in use
+constexpr int kMaxStages = 3;
+// Q tiles loaded ahead of the one in use: a load reuses the stage of the
+// tile kStages - 1 before the one in use, which both warpgroups released.
+constexpr int kLead = 1;
 constexpr int kThreads = 128 * kConsumers;
 
 struct Barriers {
-  uint64_t kv;               // the K and V tiles have landed
-  uint64_t full[kStages];    // Q, dO, lse and delta of the stage are in
-  uint64_t empty[kStages];   // every consumer thread is done with the stage
+  uint64_t kv;                  // the K and V tiles have landed
+  uint64_t full[kMaxStages];    // Q, dO, lse and delta of the stage are in
+  uint64_t empty[kMaxStages];   // every consumer thread is done with the stage
 };
 
-// Shared memory of the head_dim-kD kernel: tiles of kD / 64 halves of 64
-// columns.
+// Tiles and shared memory of the kD instance: tiles of kD / 64 halves of
+// 64 columns.
 template <int kD>
 struct Smem {
+  // At 256 the two warpgroups share the block's 64 keys and split the head
+  // dim; below, each owns 64 keys over the whole head dim.
+  static constexpr bool kSplitD = kD > 128;
+  static constexpr int kKeyGroups = kSplitD ? 1 : kConsumers;  // 64-key groups of a block
+  static constexpr int kBlockN = kRowsWG * kKeyGroups;         // keys of a block
+  static constexpr int kCols = kSplitD ? kD / kConsumers : kD; // dK/dV columns a warpgroup
+  static constexpr int kStages = kSplitD ? 2 : 3;
   static constexpr int kHalves = kD / 64;
   static constexpr int kWGBytes = kRowsWG * kD * 2;   // a warpgroup's K or V rows
   static constexpr int kWGHalf = kRowsWG * 64 * 2;    // 8 KB: [64][64]
   static constexpr int kQBytes = kBlockM * kD * 2;    // a Q or dO tile
   static constexpr int kQHalf = kBlockM * 64 * 2;     // 8 KB
   static constexpr int kOffK = 0;
-  static constexpr int kOffV = kOffK + kConsumers * kWGBytes;
-  static constexpr int kOffQ = kOffV + kConsumers * kWGBytes;
+  static constexpr int kOffV = kOffK + kKeyGroups * kWGBytes;
+  static constexpr int kOffQ = kOffV + kKeyGroups * kWGBytes;
   static constexpr int kOffDO = kOffQ + kStages * kQBytes;
   static constexpr int kOffRows = kOffDO + kStages * kQBytes;  // [stage][lse 64, delta 64] fp32
   static constexpr int kOffBar = kOffRows + kStages * 2 * kBlockM * 4;
@@ -92,6 +116,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta, int B, int H, int KVH,
     int Sq, int Sk, int causal, float scale) {
   using L = Smem<kD>;
+  constexpr int kBlockN = L::kBlockN, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kOffBar);
@@ -146,8 +171,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
       mbar_init(&bar.empty[s], kThreads);
     }
     fence_barrier_init();
-    mbar_arrive_expect_tx(&bar.kv, 2 * kConsumers * L::kWGBytes);
-    for (int w = 0; w < kConsumers; ++w)
+    mbar_arrive_expect_tx(&bar.kv, 2 * L::kKeyGroups * L::kWGBytes);
+    for (int w = 0; w < L::kKeyGroups; ++w)
       for (int half = 0; half < L::kHalves; ++half) {
         tma_load_4d(smem + L::kOffK + w * L::kWGBytes + half * L::kWGHalf, &k_map, &bar.kv,
                     half * 64, kvh, k0 + w * kRowsWG, b);
@@ -163,14 +188,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int rq = lane / 4, cq = 2 * (lane % 4);
-  const int kw0 = k0 + wg * kRowsWG;          // first key of this warpgroup
+  const int kg = L::kSplitD ? 0 : wg;        // this warpgroup's 64 keys
+  const int kw0 = k0 + kg * kRowsWG;          // first key of this warpgroup
   const int key0 = kw0 + warp * 16 + rq;      // this thread's keys: key0 and key0 + 8
+  const int half0 = L::kSplitD ? wg * L::kCols / 64 : 0;  // first half of its dK/dV columns
   const float c = scale * kLog2e;
-  unsigned char* k_tile = smem + L::kOffK + wg * L::kWGBytes;
-  unsigned char* v_tile = smem + L::kOffV + wg * L::kWGBytes;
+  unsigned char* k_tile = smem + L::kOffK + kg * L::kWGBytes;
+  unsigned char* v_tile = smem + L::kOffV + kg * L::kWGBytes;
   const uint32_t k_addr = smem_u32(k_tile), v_addr = smem_u32(v_tile);
 
-  constexpr int kAcc = kD / 2;  // dK and dV accumulators a thread, each
+  constexpr int kAcc = L::kCols / 2;  // dK and dV accumulators a thread, each
   float dk[kAcc], dv[kAcc], st[32], dp[32];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) dk[i] = dv[i] = 0.0f;
@@ -233,8 +260,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
       pa[i / 2] = pack_bf16(st[i], st[i + 1]);
       da[i / 2] = pack_bf16(st[i] * (dp[i] - d2.x), st[i + 1] * (dp[i + 1] - d2.y));
     }
-    // dV += P^T dO and dK += dS^T Q: 4 k16 steps of 16 rows (2 KB) each,
-    // dO and Q read MN-major.
+    // dV += P^T dO and dK += dS^T Q on the warpgroup's columns: 4 k16
+    // steps of 16 rows (2 KB) each, dO and Q read MN-major.
     fence_regs(dv);
     fence_regs(dk);
     fence_regs(pa);
@@ -243,11 +270,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk)
       wgmma_rs_tb(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                  mnmajor_desc(do_addr + kk * 2048, L::kQHalf));
+                  do_addr + half0 * L::kQHalf + kk * 2048, L::kQHalf);
 #pragma unroll
     for (int kk = 0; kk < kBlockM / 16; ++kk)
       wgmma_rs_tb(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                  mnmajor_desc(q_addr + kk * 2048, L::kQHalf));
+                  q_addr + half0 * L::kQHalf + kk * 2048, L::kQHalf);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -258,12 +285,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   }
 
   // Epilogue: dK * scale and dV as bf16 into this warpgroup's own K and V
-  // rows (read by no one else, and done with), in the swizzled layout the
-  // TMA store reads.
+  // rows (read by no one else, and done with; at kD 256 its own columns of
+  // the shared rows, once the other warpgroup is done reading them), in the
+  // swizzled layout the TMA store reads.
+  if (L::kSplitD) __syncthreads();
 #pragma unroll
   for (int i = 0; i < kAcc; i += 2) {
     const int r = warp * 16 + rq + ((i / 2) % 2) * 8;
-    const int col = (i / 4) * 8 + cq;
+    const int col = half0 * 64 + (i / 4) * 8 + cq;
     const int off = (col / 64) * L::kWGHalf + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16) +
                     (col % 8) * 2;
     *reinterpret_cast<uint32_t*>(k_tile + off) = pack_bf16(dk[i] * scale, dk[i + 1] * scale);
@@ -272,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   fence_proxy_async();
   named_barrier_sync<128>(1 + wg);
   if (tid == 0) {
-    for (int half = 0; half < L::kHalves; ++half) {
+    for (int half = half0; half < half0 + L::kCols / 64; ++half) {
       tma_store_4d(&dk_map, k_tile + half * L::kWGHalf, half * 64, kvh, kw0, b);
       tma_store_4d(&dv_map, v_tile + half * L::kWGHalf, half * 64, kvh, kw0, b);
     }
@@ -280,18 +309,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_kernel(
   }
 }
 
+// Launch the kD instance on tensors of head_dim D (kD / 2 < D <= kD).
 template <int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-                   int KVH, int Sq, int Sk, int causal, float scale, void* stream) {
+                   int KVH, int Sq, int Sk, int D, int causal, float scale, void* stream) {
   constexpr int kSmemBytes = Smem<kD>::kBytes;
+  constexpr int kBlockN = Smem<kD>::kBlockN;
   CUtensorMap q_map, k_map, v_map, do_map, dk_map, dv_map;
-  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, kD, kBlockM);
-  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, kD, kBlockM);
-  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&dk_map, dk, B, Sk, KVH, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&dv_map, dv, B, Sk, KVH, kD, kRowsWG);
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kBlockM);
+  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, D, kBlockM);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&dk_map, dk, B, Sk, KVH, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&dv_map, dv, B, Sk, KVH, D, kRowsWG);
   if (err == cudaSuccess) err = allow_smem(flash_dkv_kernel<kD>, kSmemBytes);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>((Sk + kBlockN - 1) / kBlockN) * B * KVH;
@@ -307,12 +338,17 @@ extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int B,
                             int H, int KVH, int Sq, int Sk, int D, int causal, float scale,
                             void* stream) {
+  // Head dims that are a multiple of 16 from 16 to 256 (ops/flash.py
+  // refuses every other before it calls).
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64)
-    err = launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, causal, scale,
+  if (D % 16 == 0 && D >= 16 && D <= 64)
+    err = launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, causal, scale,
                      stream);
-  if (D == 128)
-    err = launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, causal, scale,
+  else if (D % 16 == 0 && D > 64 && D <= 128)
+    err = launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, causal, scale,
+                      stream);
+  else if (D % 16 == 0 && D > 128 && D <= 256)
+    err = launch<256>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, causal, scale,
                       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   TK_RETURN_LAST_ERROR();

@@ -15,23 +15,31 @@
 // 512, 12 heads x 64, non-causal) 19.3 GFLOP against 63.7 MB.
 //
 // Design (sm_90a, the building blocks in hopper.cuh): the dK/dV kernel's,
-// mirrored. One kernel for each head_dim, 64 and 128 (the template
-// argument kD). One block per (128 Q rows, q head, batch), two warpgroups of 64
-// Q rows each, and no producer warpgroup (a third warpgroup caps ptxas at
-// 168 registers a thread, which spills; flash_dkv.cu).
+// mirrored. Three instances, the template argument kD: kD = 64 serves
+// head_dim 16..64, 128 serves 80..128 and 256 serves 144..256 (multiples
+// of 16). The tensor maps carry the true head_dim, so TMA zero-fills the
+// tile columns past it on every load and clips them on the store of dQ
+// (hopper.cuh, "Head dims"); lse and delta are per row, not per column.
+// At kD 64 and 128, one block per (128 Q rows, q head, batch), two
+// warpgroups of 64 Q rows each, and no producer warpgroup (a third
+// warpgroup caps ptxas at 168 registers a thread, which spills;
+// flash_dkv.cu). At 256 the Q and dO tiles of 128 rows alone take 128 KB,
+// so a block has one warpgroup of 64 Q rows and K/V tiles of 64 keys:
+// Q 32 + dO 32 + 2 x (K 32 + V 32) = 192 KB.
 // - Thread 0 loads the block's Q and dO tiles once by TMA, then streams the
-//   K and V tiles (128 keys each) into a 2-stage ring, one tile ahead of
-//   their use; each stage completes on a `full` mbarrier and is freed
-//   through an `empty` one that all 256 threads arrive on. Each thread keeps
-//   its two rows' lse and delta in registers.
-// - S = Q K^T and dP = dO V^T are wgmma m64n128k16 with both operands
-//   K-major from the swizzled tiles, in two commit groups. P = exp2(S *
-//   scale * log2 e - lse * log2 e) and dS = P (dP - delta) run on the
-//   accumulator registers; dS is packed to bf16 A fragments as it is made.
-// - dQ += dS K is wgmma m64n128k16 (m64n64k16 at head_dim 64) with A = dS
-//   from registers and B the same K tile read MN-major. dQ (64 fp32 a
-//   thread, 32 at head_dim 64) stays in registers beside S and dP (64
-//   each), with no spill.
+//   K and V tiles into a 2-stage ring, one tile ahead of their use; each
+//   stage completes on a `full` mbarrier and is freed through an `empty`
+//   one that every thread arrives on. Each thread keeps its two rows' lse
+//   and delta in registers.
+// - S = Q K^T and dP = dO V^T are wgmma m64n128k16 (m64n64k16 on 64-key
+//   tiles) with both operands K-major from the swizzled tiles, in two
+//   commit groups. P = exp2(S * scale * log2 e - lse * log2 e) and dS = P
+//   (dP - delta) run on the accumulator registers; dS is packed to bf16 A
+//   fragments as it is made.
+// - dQ += dS K is wgmma m64n128k16 (m64n64k16 at kD 64, two m64n128k16 at
+//   256) with A = dS from registers and B the same K tile read MN-major.
+//   dQ (kD / 2 fp32 a thread) stays in registers beside S and dP (64 each
+//   on 128-key tiles, 32 each on 64-key tiles).
 // - Tiles of 128 keys halve the barrier waits and double the work per wait
 //   against 64-key tiles (which fit a 3-stage ring, and ran 13% slower;
 //   PERF.md), at the price of a diagonal tile whose first warpgroup sees a
@@ -42,8 +50,8 @@
 //   blocks with the most K tiles launch first.
 // - Epilogue: dQ * scale to bf16, staged in the warpgroup's own Q rows and
 //   written by TMA store (rows past the end are not written).
-// Shared memory 193 KB at head_dim 128 (97 KB at 64, which keeps the
-// 2-stage ring): one block an SM. GQA by index (K/V at head
+// Shared memory 193 KB at kD 128, 97 KB at 64 (which keeps the 2-stage
+// ring) and 193 KB at 256: one block an SM. GQA by index (K/V at head
 // h / groups), no copies of K/V.
 
 #include "hopper.cuh"
@@ -53,11 +61,7 @@ namespace {
 using namespace hopper;
 
 constexpr int kRowsWG = 64;                    // Q rows of a consumer warpgroup
-constexpr int kConsumers = 2;                  // consumer warpgroups
-constexpr int kBlockM = kRowsWG * kConsumers;  // Q rows of a block
-constexpr int kBlockN = 128;                   // keys of a K/V tile
 constexpr int kStages = 2;                     // as many as fit beside Q and dO
-constexpr int kThreads = 128 * kConsumers;
 
 struct Barriers {
   uint64_t q;                // the Q and dO tiles have landed
@@ -65,15 +69,19 @@ struct Barriers {
   uint64_t empty[kStages];   // every consumer thread is done with the stage
 };
 
-// Shared memory of the head_dim-kD kernel: tiles of kD / 64 halves of 64
-// columns.
+// Tiles and shared memory of the kD instance: tiles of kD / 64 halves of
+// 64 columns.
 template <int kD>
 struct Smem {
+  static constexpr int kConsumers = kD > 128 ? 1 : 2;   // consumer warpgroups
+  static constexpr int kBlockM = kRowsWG * kConsumers;  // Q rows of a block
+  static constexpr int kBlockN = kD > 128 ? 64 : 128;   // keys of a K/V tile
+  static constexpr int kThreads = 128 * kConsumers;
   static constexpr int kHalves = kD / 64;
   static constexpr int kWGBytes = kRowsWG * kD * 2;   // a warpgroup's Q or dO rows
   static constexpr int kWGHalf = kRowsWG * 64 * 2;    // 8 KB: [64][64]
   static constexpr int kKVBytes = kBlockN * kD * 2;   // a K or V tile
-  static constexpr int kKVHalf = kBlockN * 64 * 2;    // 16 KB: [128][64]
+  static constexpr int kKVHalf = kBlockN * 64 * 2;    // [kBlockN][64]
   static constexpr int kOffQ = 0;
   static constexpr int kOffDO = kOffQ + kConsumers * kWGBytes;
   static constexpr int kOffK = kOffDO + kConsumers * kWGBytes;
@@ -83,13 +91,15 @@ struct Smem {
 };
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
+__global__ void __launch_bounds__(Smem<kD>::kThreads, 1) flash_dq_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
     const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
     const float* __restrict__ delta, int B, int H, int KVH, int Sq, int Sk, int causal,
     float scale) {
   using L = Smem<kD>;
+  constexpr int kConsumers = L::kConsumers, kBlockM = L::kBlockM, kBlockN = L::kBlockN;
+  constexpr int kThreads = L::kThreads;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kOffBar);
@@ -183,13 +193,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(st, kmajor_desc(q_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
-                          kmajor_desc(k_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
+      wgmma_ss(st, kmajor_desc(q_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
+               kmajor_desc(k_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(dp, kmajor_desc(do_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
-                          kmajor_desc(v_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
+      wgmma_ss(dp, kmajor_desc(do_addr + (kk / 4) * L::kWGHalf + (kk % 4) * 32),
+               kmajor_desc(v_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
@@ -223,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
       wgmma_rs_tb(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                  mnmajor_desc(k_addr + kk * 2048, L::kKVHalf));
+                  k_addr + kk * 2048, L::kKVHalf);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -250,21 +260,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_kernel(
   }
 }
 
+// Launch the kD instance on tensors of head_dim D (kD / 2 < D <= kD).
 template <int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int B, int H, int KVH, int Sq,
-                   int Sk, int causal, float scale, void* stream) {
-  constexpr int kSmemBytes = Smem<kD>::kBytes;
+                   int Sk, int D, int causal, float scale, void* stream) {
+  using L = Smem<kD>;
   CUtensorMap q_map, k_map, v_map, do_map, dq_map;
-  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&dq_map, dq, B, Sq, H, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, kD, kBlockN);
-  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, kD, kBlockN);
-  if (err == cudaSuccess) err = allow_smem(flash_dq_kernel<kD>, kSmemBytes);
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&do_map, dout, B, Sq, H, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&dq_map, dq, B, Sq, H, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, L::kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, L::kBlockN);
+  if (err == cudaSuccess) err = allow_smem(flash_dq_kernel<kD>, L::kBytes);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
-  flash_dq_kernel<kD><<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = static_cast<unsigned>((Sq + L::kBlockM - 1) / L::kBlockM) * B * H;
+  flash_dq_kernel<kD><<<blocks, L::kThreads, L::kBytes, static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), B, H, KVH, Sq, Sk, causal, scale);
   return cudaSuccess;
@@ -275,11 +286,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 extern "C" int tk_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int B, int H, int KVH,
                            int Sq, int Sk, int D, int causal, float scale, void* stream) {
+  // Head dims that are a multiple of 16 from 16 to 256 (ops/flash.py
+  // refuses every other before it calls).
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64)
-    err = launch<64>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, causal, scale, stream);
-  if (D == 128)
-    err = launch<128>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, causal, scale, stream);
+  if (D % 16 == 0 && D >= 16 && D <= 64)
+    err = launch<64>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, causal, scale,
+                     stream);
+  else if (D % 16 == 0 && D > 64 && D <= 128)
+    err = launch<128>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, causal, scale,
+                      stream);
+  else if (D % 16 == 0 && D > 128 && D <= 256)
+    err = launch<256>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, causal, scale,
+                      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   TK_RETURN_LAST_ERROR();
 }

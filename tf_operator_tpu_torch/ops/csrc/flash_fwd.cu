@@ -12,28 +12,37 @@
 // 128, causal: 68.75 GFLOP against 135 MB of traffic); bytes at bert-base
 // (bs 16, seq 512, 12 heads x 64, non-causal: 12.9 GFLOP, 50.7 MB).
 //
-// Design (sm_90a, the building blocks in hopper.cuh). One kernel for each
-// head_dim, 64 and 128 (the template argument kD). One block per (128 Q
-// rows, q head, batch): two warpgroups of 64 Q rows each.
+// Design (sm_90a, the building blocks in hopper.cuh). Three instances,
+// the template argument kD: kD = 64 serves head_dim 16..64, 128 serves
+// 80..128 and 256 serves 144..256 (multiples of 16). The tensor maps carry
+// the true head_dim, so TMA zero-fills the tile columns past it on every
+// load and clips them on the store of O (hopper.cuh, "Head dims"): the
+// zero columns add nothing to S and give zero O columns that are never
+// written. One block per (128 Q rows, q head, batch): two warpgroups of 64
+// Q rows each.
 // - Thread 0 loads the block's Q tile once and streams the K and V tiles
-//   (128 keys each) by TMA into a 3-stage ring, one tile ahead of its use,
-//   each stage completing on an mbarrier; the warpgroups free a stage
-//   through a second mbarrier. So tile j + 1 loads while tile j computes.
-// - S = Q K^T is wgmma m64n128k16 with both operands K-major from the
-//   swizzled tiles. The softmax runs on the accumulator registers: each
-//   thread holds two rows, the row max and sum take two quad shuffles, and
-//   exp2 runs with scale * log2(e) folded into one multiply. The O
-//   accumulator (64 fp32 a thread) is rescaled in registers. O += P V is
-//   wgmma with P from registers (the S accumulator cast to bf16 pairs is
-//   the A fragment) and V MN-major from shared memory: m64n128k16 at
-//   head_dim 128, m64n64k16 (32 fp32 a thread) at 64.
+//   by TMA into a ring, one tile ahead of its use, each stage completing on
+//   an mbarrier; the warpgroups free a stage through a second mbarrier. So
+//   tile j + 1 loads while tile j computes. Tiles of 128 keys in 3 stages
+//   at kD 64 and 128; at 256, where a 128-key K or V tile alone is 64 KB,
+//   tiles of 64 keys in 2 stages (Q 64 KB + 2 x (K 32 + V 32) = 192 KB).
+// - S = Q K^T is wgmma m64n128k16 (m64n64k16 on 64-key tiles) with both
+//   operands K-major from the swizzled tiles. The softmax runs on the
+//   accumulator registers: each thread holds two rows, the row max and sum
+//   take two quad shuffles, and exp2 runs with scale * log2(e) folded into
+//   one multiply. The O accumulator (kD / 2 fp32 a thread) is rescaled in
+//   registers. O += P V is wgmma with P from registers (the S accumulator
+//   cast to bf16 pairs is the A fragment) and V MN-major from shared
+//   memory: m64n64k16 at kD 64, m64n128k16 at 128, two m64n128k16 at 256
+//   (128 fp32 a thread, beside 32 of S).
 // - Causal: K tiles past the block's last row are never loaded, only tiles
 //   that cross the diagonal (or the ragged end of the keys) are masked, and
 //   the blocks with the most tiles launch first.
 // - Epilogue: o = acc / l in registers, to bf16, staged in the warpgroup's
 //   own Q rows and written by TMA store (rows past the end are not
 //   written); lse from registers.
-// Shared memory 225 KB at head_dim 128 (113 KB at 64): one block an SM. GQA by index (K/V at head
+// Shared memory 225 KB at kD 128, 113 KB at 64 and 193 KB at 256: one
+// block an SM. GQA by index (K/V at head
 // h / groups), no copies of K/V. With 128 Q rows a block, every block
 // streams its K/V tiles from L2 (570 MB a call at llama-400m); that stream,
 // not the products or the softmax, sets most of the time (PERF.md).
@@ -47,26 +56,26 @@ using namespace hopper;
 constexpr int kRowsWG = 64;                   // Q rows of a consumer warpgroup
 constexpr int kConsumers = 2;                 // consumer warpgroups
 constexpr int kBlockM = kRowsWG * kConsumers; // Q rows of a block
-constexpr int kBlockN = 128;                  // keys of a K/V tile
-constexpr int kStages = 3;
+constexpr int kMaxStages = 3;
 constexpr int kThreads = 128 * kConsumers;
 
 struct Barriers {
-  uint64_t q;                // the Q tile has landed
-  uint64_t k[kStages];       // K tile of the stage has landed
-  uint64_t v[kStages];       // V tile of the stage has landed
-  uint64_t empty[kStages];   // every consumer thread is done with the stage
+  uint64_t q;                  // the Q tile has landed
+  uint64_t k[kMaxStages];      // K tile of the stage has landed
+  uint64_t v[kMaxStages];      // V tile of the stage has landed
+  uint64_t empty[kMaxStages];  // every consumer thread is done with the stage
 };
 
-// Shared memory of the head_dim-kD kernel: tiles of kD / 64 halves of 64
-// columns.
+// Shared memory of the kD instance: tiles of kD / 64 halves of 64 columns.
 template <int kD>
 struct Smem {
+  static constexpr int kBlockN = kD > 128 ? 64 : 128;  // keys of a K/V tile
+  static constexpr int kStages = kD > 128 ? 2 : 3;
   static constexpr int kHalves = kD / 64;
   static constexpr int kQWGBytes = kRowsWG * kD * 2;   // a warpgroup's Q rows
   static constexpr int kQHalf = kRowsWG * 64 * 2;      // 8 KB: [64][64]
   static constexpr int kKVBytes = kBlockN * kD * 2;    // a K or V tile
-  static constexpr int kKVHalf = kBlockN * 64 * 2;     // 16 KB: [128][64]
+  static constexpr int kKVHalf = kBlockN * 64 * 2;     // [kBlockN][64]
   static constexpr int kOffQ = 0;
   static constexpr int kOffK = kOffQ + kConsumers * kQWGBytes;
   static constexpr int kOffV = kOffK + kStages * kKVBytes;
@@ -75,16 +84,18 @@ struct Smem {
 };
 
 // One tile's step of the online softmax on the S accumulator (two rows a
-// thread: row0 and row0 + 8): mask (only where `masked`), the new row max
-// over the quad, P = exp2(s * c - m * c) in place, l += this thread's share
-// of the row sum; returns the factors that rescale the old accumulator.
-__device__ __forceinline__ void softmax_step(float (&sc)[64], float& m0, float& m1, float& l0,
+// thread: row0 and row0 + 8; kS = the tile's keys / 2 values): mask (only
+// where `masked`), the new row max over the quad, P = exp2(s * c - m * c)
+// in place, l += this thread's share of the row sum; returns the factors
+// that rescale the old accumulator.
+template <int kS>
+__device__ __forceinline__ void softmax_step(float (&sc)[kS], float& m0, float& m1, float& l0,
                                              float& l1, float& alpha0, float& alpha1,
                                              bool masked, int k0, int row0, int cq, int Sk,
                                              int causal, float c) {
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kS; ++i) {
       const int col = k0 + (i / 4) * 8 + cq + (i % 2);
       const int row = row0 + ((i / 2) % 2) * 8;
       if (col >= Sk || (causal && col > row)) sc[i] = -INFINITY;
@@ -92,7 +103,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float& m0, float& 
   }
   float mx0 = m0, mx1 = m1;
 #pragma unroll
-  for (int i = 0; i < 64; i += 4) {
+  for (int i = 0; i < kS; i += 4) {
     mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
     mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
   }
@@ -110,7 +121,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float& m0, float& 
   m1 = mx1;
   float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 64; i += 4) {
+  for (int i = 0; i < kS; i += 4) {
     sc[i] = exp2_approx(fmaf(sc[i], c, -ms0));
     sc[i + 1] = exp2_approx(fmaf(sc[i + 1], c, -ms0));
     sc[i + 2] = exp2_approx(fmaf(sc[i + 2], c, -ms1));
@@ -125,9 +136,9 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float& m0, float& 
 // acc *= alpha per row, and P (the softmaxed S accumulator) as bf16 A
 // fragments: keys 16kk..16kk+15 are accumulator columns 8(2kk) and
 // 8(2kk+1), i.e. sc[8kk .. 8kk+7].
-template <int kAcc>
-__device__ __forceinline__ void rescale_and_pack(float (&acc)[kAcc], const float (&sc)[64],
-                                                 uint32_t (&pa)[32], float alpha0,
+template <int kAcc, int kS>
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[kAcc], const float (&sc)[kS],
+                                                 uint32_t (&pa)[kS / 2], float alpha0,
                                                  float alpha1) {
 #pragma unroll
   for (int i = 0; i < kAcc; i += 4) {
@@ -137,7 +148,7 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[kAcc], const float
     acc[i + 3] *= alpha1;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  for (int i = 0; i < kS / 2; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
 template <int kD>
@@ -146,6 +157,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap o_map,
     float* __restrict__ lse, int B, int H, int KVH, int Sq, int Sk, int causal, float scale) {
   using L = Smem<kD>;
+  constexpr int kBlockN = L::kBlockN, kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kOffBar);
@@ -202,12 +214,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   unsigned char* q_tile = smem + L::kOffQ + wg * L::kQWGBytes;
   const uint32_t q_addr = smem_u32(q_tile);
 
-  constexpr int kAcc = kD / 2;  // O accumulators a thread
-  float acc[kAcc], sc[64];
+  constexpr int kAcc = kD / 2;       // O accumulators a thread
+  constexpr int kS = kBlockN / 2;    // S accumulators a thread
+  float acc[kAcc], sc[kS];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
+  for (int i = 0; i < kS; ++i) sc[i] = 0.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
   mbar_wait(&bar.q, 0);
 
@@ -221,8 +234,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_m64n128k16_ss(sc, kmajor_desc(q_addr + (kk / 4) * L::kQHalf + (kk % 4) * 32),
-                          kmajor_desc(k_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
+      wgmma_ss(sc, kmajor_desc(q_addr + (kk / 4) * L::kQHalf + (kk % 4) * 32),
+               kmajor_desc(k_addr + (kk / 4) * L::kKVHalf + (kk % 4) * 32), kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -230,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
     float alpha0, alpha1;
     const bool masked = (causal && k0 + kBlockN - 1 > q0) || k0 + kBlockN > Sk;
     softmax_step(sc, m0, m1, l0, l1, alpha0, alpha1, masked, k0, row0, cq, Sk, causal, c);
-    uint32_t pa[32];
+    uint32_t pa[kS / 2];
     rescale_and_pack(acc, sc, pa, alpha0, alpha1);
     mbar_wait(&bar.v[s], phase);
     fence_regs(acc);
@@ -239,7 +252,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
       wgmma_rs_tb(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                  mnmajor_desc(v_addr + kk * 2048, L::kKVHalf));
+                  v_addr + kk * 2048, L::kKVHalf);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -280,15 +293,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(
   }
 }
 
+// Launch the kD instance on tensors of head_dim D (kD / 2 < D <= kD).
 template <int kD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                   int H, int KVH, int Sq, int Sk, int causal, float scale, void* stream) {
+                   int H, int KVH, int Sq, int Sk, int D, int causal, float scale,
+                   void* stream) {
   constexpr int kSmemBytes = Smem<kD>::kBytes;
+  constexpr int kBlockN = Smem<kD>::kBlockN;
   CUtensorMap q_map, k_map, v_map, o_map;
-  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, kD, kRowsWG);
-  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, kD, kBlockN);
-  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, kD, kBlockN);
-  if (err == cudaSuccess) err = make_bshd_map(&o_map, o, B, Sq, H, kD, kRowsWG);
+  cudaError_t err = make_bshd_map(&q_map, q, B, Sq, H, D, kRowsWG);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, k, B, Sk, KVH, D, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, v, B, Sk, KVH, D, kBlockN);
+  if (err == cudaSuccess) err = make_bshd_map(&o_map, o, B, Sq, H, D, kRowsWG);
   if (err == cudaSuccess) err = allow_smem(flash_fwd_kernel<kD>, kSmemBytes);
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>((Sq + kBlockM - 1) / kBlockM) * B * H;
@@ -302,9 +318,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 extern "C" int tk_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int H, int KVH, int Sq, int Sk, int D, int causal,
                             float scale, void* stream) {
+  // Head dims that are a multiple of 16 from 16 to 256 (ops/flash.py
+  // refuses every other before it calls).
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64) err = launch<64>(q, k, v, o, lse, B, H, KVH, Sq, Sk, causal, scale, stream);
-  if (D == 128) err = launch<128>(q, k, v, o, lse, B, H, KVH, Sq, Sk, causal, scale, stream);
+  if (D % 16 == 0 && D >= 16 && D <= 64)
+    err = launch<64>(q, k, v, o, lse, B, H, KVH, Sq, Sk, D, causal, scale, stream);
+  else if (D % 16 == 0 && D > 64 && D <= 128)
+    err = launch<128>(q, k, v, o, lse, B, H, KVH, Sq, Sk, D, causal, scale, stream);
+  else if (D % 16 == 0 && D > 128 && D <= 256)
+    err = launch<256>(q, k, v, o, lse, B, H, KVH, Sq, Sk, D, causal, scale, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   TK_RETURN_LAST_ERROR();
 }

@@ -8,17 +8,18 @@
 //   needs no -lcuda); 4-byte cp.async for short rows, completing on the same
 //   kind of barrier;
 // - wgmma: the shared-memory matrix descriptor of the 128-byte swizzle and
-//   the four products the kernels use (m64n64k16 and m64n128k16 with both
+//   the products the kernels use (m64n64k16 and m64n128k16 with both
 //   operands from shared memory, m64n64k16 and m64n128k16 with A from
-//   registers and B MN-major), with fence, commit and wait.
+//   registers and B MN-major, the latter twice over for 256 columns), with
+//   fence, commit and wait.
 //
-// Layout convention. Every bf16 tile of head_dim 128 lives in shared memory
-// as two "halves" of 64 columns (a tile of head_dim 64 is one such half),
-// each [rows][64] with 128-byte rows in the
-// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), which is
-// what a TMA box of 64 x rows with CU_TENSOR_MAP_SWIZZLE_128B writes and
-// what wgmma's swizzle mode 1 reads. Each half starts on a 1024-byte
-// boundary. The same half serves two operand majors:
+// Layout convention. Every bf16 tile lives in shared memory as kD / 64
+// "halves" of 64 columns (a tile of head_dim 64 is one such half, of 256
+// four), each [rows][64] with 128-byte rows in the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8)), which is what a TMA box of 64 x
+// rows with CU_TENSOR_MAP_SWIZZLE_128B writes and what wgmma's swizzle mode
+// 1 reads. Each half starts on a 1024-byte boundary. The same half serves
+// two operand majors:
 //   K-major (the contiguous 64 columns are the product's K): the
 //     descriptor starts at row group 0 plus 32 bytes per k16 step inside the
 //     half (the next half after four steps); SBO = 1024 (8 rows of 128 B).
@@ -26,6 +27,15 @@
 //     a k16 step is 16 rows, 2048 bytes; SBO = 1024 (8 rows of K);
 //     LBO = the distance between the two halves (N 0..63 and 64..127),
 //     unread by a product of N = 64.
+//
+// Head dims. A kernel instance kD (64, 128 or 256) serves every head_dim D
+// that is a multiple of 16 with kD / 2 < D <= kD (16 <= D <= 64 for the
+// 64 instance). The tensor maps carry the true D as the inner dimension
+// (make_bshd_map), while the boxes stay 64 columns wide: TMA fills the
+// columns at D and beyond with zeros on a load (a box wholly past D is all
+// zeros) and does not write them on a store. Zero columns add nothing to
+// Q K^T or dO V^T and make zero columns of O, dQ, dK and dV, which are
+// never stored; every store of the kernels goes through TMA.
 #pragma once
 
 #include "common.cuh"
@@ -330,17 +340,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], uint32_t a
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
+// The products over a tile's keys or queries whose N is a score tile's
+// width (S = Q K^T and dP = dO V^T; 32 accumulators a thread at 64
+// columns, 64 at 128), both operands K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+}
+
 // The register-A, MN-major-B product whose N is the accumulator's width:
 // the head dimension of a flash kernel's P V, dS K, P^T dO or dS^T Q (32
-// accumulators a thread at head_dim 64, 64 at 128).
+// accumulators a thread at 64 columns, 64 at 128, 128 at 256). B is the
+// k16 step at `b_addr`, its 64-column halves `half_bytes` apart. At 256
+// columns it is two products of N = 128, the second on halves 2 and 3.
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t desc_b) {
-  wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, desc_b, 1);
+                                            uint32_t a2, uint32_t a3, uint32_t b_addr,
+                                            uint32_t half_bytes) {
+  wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, mnmajor_desc(b_addr, half_bytes), 1);
 }
 
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t desc_b) {
-  wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, desc_b, 1);
+                                            uint32_t a2, uint32_t a3, uint32_t b_addr,
+                                            uint32_t half_bytes) {
+  wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, mnmajor_desc(b_addr, half_bytes), 1);
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint32_t b_addr,
+                                            uint32_t half_bytes) {
+  float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&d[0]);
+  float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&d[64]);
+  wgmma_m64n128k16_rs_tb(lo, a0, a1, a2, a3, mnmajor_desc(b_addr, half_bytes), 1);
+  wgmma_m64n128k16_rs_tb(hi, a0, a1, a2, a3, mnmajor_desc(b_addr + 2 * half_bytes, half_bytes),
+                         1);
 }
 
 // ------------------------------------------------------------ host side
@@ -370,8 +407,11 @@ inline EncodeTiledFn encode_tiled() {
 
 // Tensor map over a contiguous bf16 BSHD tensor [B, S, H, D] as the 4-D
 // (D, H, S, B), boxes of 64 head dims x 1 head x `box_rows` rows x 1 batch
-// in the 128-byte swizzle. Because the batch is a dimension of its own, the
-// zero fill past the end of a sequence stops at that batch's end.
+// in the 128-byte swizzle. D is the tensor's own head_dim (a multiple of
+// 16, so that a row is a multiple of 32 bytes), not the instance's: the
+// columns of a box at D and beyond are zeros on a load and left out of a
+// store. Because the batch is a dimension of its own, the zero fill past
+// the end of a sequence stops at that batch's end.
 inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
                                  int box_rows) {
   const EncodeTiledFn encode = encode_tiled();

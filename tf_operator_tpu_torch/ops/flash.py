@@ -16,11 +16,15 @@ saves the forward's (o, lse) (the JAX package tags them ``flash_o``/
 ``flash_lse``) names them ``"flash"`` on its tape (``ops/remat.py``): the
 block's replay then takes them back and launches no second forward.
 
-A CUDA tensor goes through the kernels (bf16, head_dim 64 or 128, fixed
-tiles): ``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ)
-and ``ops/csrc/flash_dkv.cu`` (dK/dV), each built as one kernel for each
-head_dim, whose launches count apart (``kernel_name``: ``flash_fwd`` at
-128, ``flash_fwd_d64`` at 64); a CPU tensor through the plain versions,
+A CUDA tensor goes through the kernels (bf16, a head_dim that is a
+multiple of 16 from 16 to 256, fixed tiles): ``ops/csrc/flash_fwd.cu``
+(forward), ``ops/csrc/flash_dq.cu`` (dQ) and ``ops/csrc/flash_dkv.cu``
+(dK/dV), each built as three instances, for tiles 64, 128 and 256 columns
+wide; a head_dim goes to the narrowest that holds it, whose columns past it
+TMA fills with zeros, and the instances' launches count apart
+(``kernel_name``: ``flash_fwd_d64`` up to 64, ``flash_fwd`` up to 128,
+``flash_fwd_d256`` above). Any other head_dim raises before a launch: no
+fallback. A CPU tensor goes through the plain versions,
 which emulate the kernels' blockwise online-softmax recurrence with
 ``block_q``/``block_k`` blocks that step down to a divisor of the sequence
 length (``_block_size``). :func:`flash_work` counts the least bytes and
@@ -37,15 +41,32 @@ from .roofline import Work
 # Large-but-finite mask value: exp(x - x) on a fully-masked row must not
 # produce inf - inf = nan.
 MASK_VALUE = -1e30
-# The head dims the kernels are built for; any other is refused on the card.
-KERNEL_HEAD_DIMS = (64, 128)
+# The head dims the kernels take: a multiple of HEAD_DIM_STEP up to
+# MAX_HEAD_DIM; any other is refused on the card (ROADMAP.md, Queue 2,
+# "head dims that are not a multiple of 16, or above 256").
+HEAD_DIM_STEP = 16
+MAX_HEAD_DIM = 256
+# The kernel instances, by the width of their tiles, narrowest first.
+KERNEL_WIDTHS = (64, 128, 256)
+
+
+def kernel_width(head_dim: int) -> int:
+    """The tile width of the instance that serves ``head_dim``."""
+    if head_dim % HEAD_DIM_STEP or not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"flash kernels take a head_dim that is a multiple of "
+                         f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {MAX_HEAD_DIM}, not "
+                         f"{head_dim} (ROADMAP.md, Queue 2: head dims that are not a "
+                         f"multiple of 16, or above 256)")
+    return next(w for w in KERNEL_WIDTHS if head_dim <= w)
 
 
 def kernel_name(kernel: str, head_dim: int) -> str:
     """The launch counter of ``kernel`` ("flash_fwd", "flash_dq" or
-    "flash_dkv") at ``head_dim``: the kernel's own name at 128, with
-    ``_d64`` at 64."""
-    return kernel if head_dim == 128 else f"{kernel}_d{head_dim}"
+    "flash_dkv") at ``head_dim``: the kernel's own name for the 128-wide
+    instance (head_dim 80 to 128), with ``_d64`` for the 64-wide one (16 to
+    64) and ``_d256`` for the 256-wide one (144 to 256)."""
+    width = kernel_width(head_dim)
+    return kernel if width == 128 else f"{kernel}_d{width}"
 
 
 def _block_size(want: int, total: int) -> int:
@@ -82,7 +103,10 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, kvh: int, d: int,
     bf16 q ``[b, s_q, h, d]`` and k/v ``[b, s_k, kvh, d]``, with fp32 lse and
     delta ``[b, h, s_q]``. FLOPs count only the visible (q, k) pairs: 2 per
     pair and head dim for each product, of which the forward has 2 (Q K^T,
-    P V), dQ 3 (adds dO V^T, dS K) and dK/dV 4 (adds dS^T Q, P^T dO)."""
+    P V), dQ 3 (adds dO V^T, dS K) and dK/dV 4 (adds dS^T Q, P^T dO). ``d``
+    is the tensors' true head dim: the zero columns an instance wider than
+    ``d`` multiplies are waste, not work, so its share of the bound reads
+    low by up to its width over ``d``."""
     if causal and s_q != s_k:
         raise ValueError("causal attention requires s_q == s_k")
     pairs = b * h * (s_q * (s_q + 1) // 2 if causal else s_q * s_k)
@@ -227,9 +251,7 @@ def _check_kernel_qkv(q, k, v, causal):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash kernels take bfloat16; {name} is {t.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim in {KERNEL_HEAD_DIMS}, "
-                         f"not {q.shape[-1]}")
+    kernel_width(q.shape[-1])
     if q.shape[0] != k.shape[0] or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
 

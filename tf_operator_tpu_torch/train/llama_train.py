@@ -242,16 +242,19 @@ def recover(args: argparse.Namespace, state, topo: gpu_init.Topology, config):
     return ckpt, shard_srv, outcome
 
 
-def setup(args: argparse.Namespace, seed: int = 0) -> Setup:
+def setup(args: argparse.Namespace, seed: int = 0,
+          config: Optional[llama.LlamaConfig] = None) -> Setup:
     """Rendezvous, build the (sharded) train state and the input pipeline.
     The model is drawn from a generator seeded with ``seed`` on the run's
-    device; a sharded model holds the same weights as an unsharded one."""
+    device; a sharded model holds the same weights as an unsharded one.
+    ``config`` replaces ``CONFIGS[args.model]`` for a model of no named
+    configuration (``args.model`` then only names it)."""
     device = resolve_device(args.device)
     topo = gpu_init.initialize(device=device)
     if args.model is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
         args.model = default_model(device.type, world)
-    config = llama.CONFIGS[args.model]
+    config = config or llama.CONFIGS[args.model]
     if device.type == "cpu":
         args.seq = min(args.seq, config.max_seq_len)
     # Rope tables are built at max_seq_len; size them to the run (as
