@@ -231,9 +231,31 @@ Phases (any failure raises and the script exits non-zero):
       attention (losses within LOSS_TOL), and one row's backward against
       an fp32 CPU run: the kernels' gradients no further from it than the
       xla run's plus GRAD_TOL, and the same for llama-400m's own 8 x 128
-      (:func:`grads_against_fp32`).
+      (:func:`grads_against_fp32`);
+  (w) fp32 through the four kernels and the head dims that are a multiple
+      of 8 (:func:`phase_w`): phase c's checks in fp32 (rope_f32 and the
+      flash_*_f32 instances, FMAs at fp32's accuracy) in every case of
+      CASES and CASES_D64 at head dims 16, 64, 128 and 256 against the
+      fp32 plain versions on the card (TF32 off), at TOL_F32, each width's
+      instances timed at [8, 2048, 8, D] causal (D = 64, 128, 256) beside
+      their plain versions and SDPA in fp32, the bound over a third of the
+      TF32 peak (3xTF32, device.tflops_for); the same checks at head dims
+      8, 24, 72 and 136 in bf16 (TOL) and fp32 (TOL_F32), each timed at
+      [8, 2048, 8, D] in both; a 2-layer llama-tiny of 4 heads of each of
+      those trained 2 steps in both dtypes (launches a step on the
+      instance that holds the head dim);
+      llama-400m in fp32 at full width and depth through the entry point
+      (bs 8, seq 2048, "dots", 1 warm-up step and 3 timed steps: 144
+      rope_f32 and 24 of each flash_*_f32 launch a step, step time,
+      tokens/s, peak memory, MFU against a third of the TF32 peak) with
+      its losses within LOSS_TOL_F32 of the same weights under the plain
+      fp32 "xla" attention and one row's backward's gradients within
+      GRAD_TOL_F32 (rel L2) of that run's; llama-tiny, moe-tiny and
+      bert-tiny in fp32 card (kernels) against CPU (plain versions) from
+      the same weights, one backward's loss and gradients and 4 steps'
+      losses within PARITY_TOL_F32.
 
-Phases e-m, u, v and t's in-process run each reset the launch counters
+Phases e-m, u, v, w and t's in-process run each reset the launch counters
 just before their runs and read them just after; the launched runs of q, r and
 t count in their own processes and report the counts in their ``[llama]
 done`` summaries.
@@ -243,7 +265,10 @@ the entries named "...[moe-125m]", timed at its shapes, from phase l's
 window for the "..._d64" entries, timed at bert-base's, and from phase u's
 runs for the entries named "...[llama-1b]" and "..._d64[bert-large]", and
 from phase v's runs for those named "...[d<head_dim>]": the 4 x 256 model's
-at 256, the 2-layer model's of that head dim otherwise), and
+at 256, the 2-layer model's of that head dim otherwise, and from phase w's
+runs for the fp32 entries and those at head dims 8, 24, 72 and 136, named
+"...[d<head_dim>]": the fp32 llama-400m's at 128, the 2-layer model's of
+that head dim and dtype otherwise, of head dim 24 at 64 and 136 at 256), and
 {"ok": true, "device": {...}}.
 """
 
@@ -284,6 +309,10 @@ CASES = {
 # but their sums run in other orders (the tolerances of
 # tests/test_flash_pallas.py: 2e-2 forward, 5e-2 gradients). lse is fp32.
 TOL = {"rope": 1e-2, "o": 2e-2, "lse": 1e-4, "dq": 5e-2, "dk": 5e-2, "dv": 5e-2}
+# The same in fp32 (unit roundoff 6e-8), both sides fp32 on the card with
+# TF32 off: the kernels' sums run in other orders than the plain versions'
+# products, over up to 2048 keys; rope does the same fp32 math.
+TOL_F32 = {"rope": 1e-5, "o": 1e-4, "lse": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
 # Phase (d): bf16 kernels on the card against fp32 plain on the CPU.
 PARITY_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 # BERT's attention key bias adds q.b to every score of a query's row, which
@@ -387,46 +416,55 @@ def check(name: str, case: str, got, ref, tol: float, label: str = "c") -> float
     return err
 
 
-def case_inputs(c: dict, gen, dev="cuda"):
-    """Seeded bf16 q, k, v and dO, and an fp32 dlse, of a case's shape."""
+def case_inputs(c: dict, gen, dev="cuda", dtype=torch.bfloat16):
+    """Seeded q, k, v and dO in ``dtype``, and an fp32 dlse, of a case's
+    shape."""
     b, s, h, kvh, d = c["b"], c["s"], c["h"], c["kvh"], c["d"]
     s_k = c.get("s_k", s)
 
     def randn(*shape):
-        return torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
 
     q, k, v = randn(b, s, h, d), randn(b, s_k, kvh, d), randn(b, s_k, kvh, d)
     return q, k, v, randn(b, s, h, d), torch.randn(b, h, s, device=dev, generator=gen)
 
 
-def check_flash(flash, case, q, k, v, do, dlse, causal, label) -> dict:
+def check_flash(flash, case, q, k, v, do, dlse, causal, label, tol=TOL) -> dict:
     """The forward, dQ and dK/dV kernels against their plain versions, the
     backward with and without a dlse cotangent; the max abs errors."""
     err = {}
     o, lse = flash.flash_forward_cuda(q, k, v, causal)
     po, plse = flash.flash_forward_plain(q, k, v, causal)
-    err["o"] = check("o", case, o, po, TOL["o"], label)
-    err["lse"] = check("lse", case, lse, plse, TOL["lse"], label)
+    if o.dtype != q.dtype:
+        raise AssertionError(f"flash forward returned {o.dtype} on {q.dtype} inputs")
+    err["o"] = check("o", case, o, po, tol["o"], label)
+    err["lse"] = check("lse", case, lse, plse, tol["lse"], label)
     for tag, cot in (("", None), ("+dlse", dlse)):
         delta = flash.flash_delta(do, o, cot)
         dq = flash.flash_dq_cuda(q, k, v, do, lse, delta, causal)
         pdq = flash.flash_dq_plain(q, k, v, do, lse, delta, causal)
         dk, dv = flash.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
         pdk, pdv = flash.flash_dkv_plain(q, k, v, do, lse, delta, causal)
-        err["dq" + tag] = check("dq", case + tag, dq, pdq, TOL["dq"], label)
-        err["dk" + tag] = check("dk", case + tag, dk, pdk, TOL["dk"], label)
-        err["dv" + tag] = check("dv", case + tag, dv, pdv, TOL["dv"], label)
+        if not dq.dtype == dk.dtype == dv.dtype == q.dtype:
+            raise AssertionError(f"flash backward returned {dq.dtype}, {dk.dtype}, "
+                                 f"{dv.dtype} on {q.dtype} inputs")
+        err["dq" + tag] = check("dq", case + tag, dq, pdq, tol["dq"], label)
+        err["dk" + tag] = check("dk", case + tag, dk, pdk, tol["dk"], label)
+        err["dv" + tag] = check("dv", case + tag, dv, pdv, tol["dv"], label)
     return err
 
 
 def kernel_result(name, source, kern, plain, lib, nbytes, flops, err, peak, label,
-                  graph=False, case="") -> dict:
+                  graph=False, case="", dtype=torch.bfloat16) -> dict:
     """One entry of the kernels line: the kernel's, its plain version's and
-    the library call's times at one shape, and its bound there; with
-    ``graph`` the kernel and the library call are timed in a CUDA graph
-    (time_ms), as rope always is."""
+    the library call's times at one shape, and its bound there (its FLOPs
+    over ``dtype``'s peak, device.tflops_for); with ``graph`` the kernel
+    and the library call are timed in a CUDA graph (time_ms), as rope
+    always is."""
+    from tf_operator_tpu_torch.device import tflops_for
+
     t_bytes = nbytes / (peak.hbm_tbps * 1e12) * 1e3
-    t_ops = flops / (peak.bf16_tflops * 1e12) * 1e3
+    t_ops = flops / (tflops_for(peak, dtype) * 1e12) * 1e3
     res = {
         "name": name, "route": "cuda", "source": SOURCES[source][0],
         "replaces": SOURCES[source][1], "launches": None, "max_abs_err": err,
@@ -442,9 +480,11 @@ def kernel_result(name, source, kern, plain, lib, nbytes, flops, err, peak, labe
     return res
 
 
-def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda", main="main", label="c"):
-    """Each kernel against its plain version; returns per-kernel results at
-    the shapes of the case named ``main``. Lines carry ``[label]``."""
+def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda", main="main", label="c",
+            dtype=torch.bfloat16, tol=TOL):
+    """Each kernel against its plain version on ``dtype`` inputs, at
+    ``tol``; returns per-kernel results at the shapes of the case named
+    ``main``. Lines carry ``[label]``."""
     from tf_operator_tpu_torch.models.llama import rope_table
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -452,27 +492,30 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda", main="main", label="
     for case, c in cases.items():
         b, s, h, kvh, d = c["b"], c["s"], c["h"], c["kvh"], c["d"]
         s_k = c.get("s_k", s)
-        q, k, v, do, dlse = case_inputs(c, gen, dev)
+        q, k, v, do, dlse = case_inputs(c, gen, dev, dtype)
         cos, sin = rope_table(d, s, 10000.0, dev)
 
         err = {}
-        err["rope"] = check("rope", case, rope_mod.rope_cuda(q, cos, sin),
-                            rope_mod.rope_plain(q, cos, sin), TOL["rope"], label)
+        out = rope_mod.rope_cuda(q, cos, sin)
+        if out.dtype != dtype:
+            raise AssertionError(f"rope returned {out.dtype} on {dtype} x")
+        err["rope"] = check("rope", case, out, rope_mod.rope_plain(q, cos, sin), tol["rope"],
+                            label)
         err["rope_bwd"] = check("rope", case + "-bwd", rope_mod.rope_cuda(do, cos, sin, True),
-                                rope_mod.rope_plain(do, cos, sin, True), TOL["rope"], label)
+                                rope_mod.rope_plain(do, cos, sin, True), tol["rope"], label)
         causal = c["causal"]
-        err.update(check_flash(flash, case, q, k, v, do, dlse, causal, label))
+        err.update(check_flash(flash, case, q, k, v, do, dlse, causal, label, tol))
         if case != main:
             continue
         o, lse = flash.flash_forward_cuda(q, k, v, causal)
 
         delta = flash.flash_delta(do, o)
-        fw = flash.flash_work(b, s, s_k, h, kvh, d, causal)
+        fw = flash.flash_work(b, s, s_k, h, kvh, d, causal, q.element_size())
         work = {
             # name: (kernel, plain, library, bytes moved, tensor-core flops)
             "rope": (lambda: rope_mod.rope_cuda(q, cos, sin),
                      lambda: rope_mod.rope_plain(q, cos, sin), None,
-                     *rope_mod.rope_work(b, s, h, d)),
+                     *rope_mod.rope_work(b, s, h, d, q.element_size())),
             "flash_fwd": (lambda: flash.flash_forward_cuda(q, k, v, causal),
                           lambda: flash.flash_forward_plain(q, k, v, causal),
                           lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -492,7 +535,7 @@ def phase_c(flash, rope_mod, peak, cases=CASES, dev="cuda", main="main", label="
                 "flash_dkv": max(err["dk"], err["dv"], err["dk+dlse"], err["dv+dlse"])}
         for name, (kern, plain, lib, nbytes, flops) in work.items():
             results[name] = kernel_result(name, name, kern, plain, lib, nbytes, flops,
-                                          errs[name], peak, label)
+                                          errs[name], peak, label, dtype=dtype)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2)
@@ -645,21 +688,23 @@ def card_cpu_parity(label: str, model_cls, cfg, tokens) -> None:
 
 
 def expected_launches(policy: str, layers: int, head_dim: int = 128,
-                       remat: bool = True, attention: str = "pallas") -> dict:
+                       remat: bool = True, attention: str = "pallas",
+                       dtype=torch.bfloat16) -> dict:
     """Kernel launches per training step: the forward's two ropes and one
     flash forward per layer, the backward's two ropes, dQ and dK/dV, and
     the replay of what the policy does not save (nothing without remat),
-    on the flash instance that serves ``head_dim`` (none under the plain
-    "xla" attention); every other kernel 0."""
-    from tf_operator_tpu_torch.ops import build, flash
+    on the instances that serve ``head_dim`` and ``dtype`` (no flash kernel
+    under the plain "xla" attention); every other kernel 0."""
+    from tf_operator_tpu_torch.ops import build, flash, rope
 
     saved = set(policy.split("+")) if remat else {"dots", "rope"}
     want = dict.fromkeys(build.KERNELS, 0)
-    want["rope"] = (4 if "rope" in saved else 6) * layers
+    want[rope.kernel_name(dtype)] = (4 if "rope" in saved else 6) * layers
     if attention != "xla":
-        want[flash.kernel_name("flash_fwd", head_dim)] = (1 if "dots" in saved else 2) * layers
-        want[flash.kernel_name("flash_dq", head_dim)] = layers
-        want[flash.kernel_name("flash_dkv", head_dim)] = layers
+        fwd = flash.kernel_name("flash_fwd", head_dim, dtype)
+        want[fwd] = (1 if "dots" in saved else 2) * layers
+        want[flash.kernel_name("flash_dq", head_dim, dtype)] = layers
+        want[flash.kernel_name("flash_dkv", head_dim, dtype)] = layers
     return want
 
 
@@ -669,6 +714,7 @@ def train_run(build, peak, phase: str, argv: list, config=None) -> dict:
     just before it and read just after; prints and returns losses, the
     step time of its window (from the host's read of the first step's loss
     to its read of the last's), tokens/s, MFU, peak memory and launches."""
+    from tf_operator_tpu_torch.device import tflops_for
     from tf_operator_tpu_torch.train import llama_train
 
     gc.collect()
@@ -686,22 +732,24 @@ def train_run(build, peak, phase: str, argv: list, config=None) -> dict:
         raise AssertionError(f"a window of {out['window_steps']} steps times nothing")
     out["step_s"] = out["window_seconds"] / out["window_steps"]
     out["tokens_per_s"] = out["tokens_per_step"] / out["step_s"]
-    out["mfu"] = (out["tokens_per_s"] * out["config"].flops_per_token(args.seq)
-                  / (peak.bf16_tflops * 1e12))
+    # fp32 runs are scored against a third of the TF32 peak (3xTF32).
+    tflops = tflops_for(peak, out["config"].dtype)
+    out["mfu"] = out["tokens_per_s"] * out["config"].flops_per_token(args.seq) / (tflops * 1e12)
     out["per_step"] = {k: n / steps for k, n in out["launches"].items()}
     policy = out["config"].remat_policy
     log(f"[{phase}] remat_policy {policy}: losses {out['losses']}")
     log(f"[{phase}] remat_policy {policy}: window of {out['window_steps']} steps in "
         f"{out['window_seconds']:.4f} s (the first step, the warm-up, outside); step "
         f"{out['step_s']:.4f} s, tokens/s "
-        f"{out['tokens_per_s']:.1f}, MFU {out['mfu']:.4f} (peak {peak.bf16_tflops} "
-        f"TFLOP/s); peak device memory {out['peak_gib']:.3f} GiB")
+        f"{out['tokens_per_s']:.1f}, MFU {out['mfu']:.4f} (peak {tflops:g} TFLOP/s, "
+        f"{out['config'].dtype}); peak device memory {out['peak_gib']:.3f} GiB")
     log(f"[{phase}] remat_policy {policy}: launches in {steps} steps {out['launches']}, "
         f"per step {out['per_step']}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"non-finite loss {out['losses']}")
     cfg = out["config"]
-    want = expected_launches(policy, cfg.n_layers, cfg.head_dim, cfg.remat, cfg.attention_impl)
+    want = expected_launches(policy, cfg.n_layers, cfg.head_dim, cfg.remat, cfg.attention_impl,
+                             cfg.dtype)
     if out["per_step"] != want:
         raise AssertionError(f"launches per step {out['per_step']}, expected {want}")
     return out
@@ -2375,18 +2423,19 @@ TINY_STEPS = 4
 D256_HEADS = dict(n_heads=4, n_kv_heads=4)  # llama-400m's dim 1024 as 4 heads of 256
 
 
-def tiny_steps(name: str, device: str, weights=None) -> tuple[list, dict, dict]:
+def tiny_steps(name: str, device: str, weights=None, dtype=None) -> tuple[list, dict, dict]:
     """TINY_STEPS steps of ``name`` on ``device``, from ``weights`` (a state
     dict; by default seed 0's draw on the device), with the launch counters
     reset just before: llama-tiny and moe-tiny through llama_train (its
     setup and run, the synthetic batches), bert-tiny through the bench path
     (``make_train_step`` with the next-token ``loss_fn``, no padding mask,
     so that attention runs the flash kernels, as phase l's) on seeded
-    batches. Returns the losses, the launches a step and the weights the
-    run started from, on the CPU."""
+    batches; with ``dtype``, the configuration's dtype and param_dtype
+    replaced by it. Returns the losses, the launches a step and the weights
+    the run started from, on the CPU."""
     import numpy as np
 
-    from tf_operator_tpu_torch.models import bert
+    from tf_operator_tpu_torch.models import bert, llama
     from tf_operator_tpu_torch.ops import build
     from tf_operator_tpu_torch.train import llama_train
     from tf_operator_tpu_torch.train.train_step import (
@@ -2395,14 +2444,17 @@ def tiny_steps(name: str, device: str, weights=None) -> tuple[list, dict, dict]:
         make_train_step,
     )
 
+    def typed(cfg):
+        return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+
     if name.startswith("bert"):
-        cfg = bert.CONFIGS[name]
+        cfg = typed(bert.CONFIGS[name])
         model = bert.Bert(cfg, device=device, generator=torch.Generator(device).manual_seed(0))
     else:
         args = llama_train.parse_args(["--model", name, "--batch", "8", "--seq", "128",
                                        "--steps", str(TINY_STEPS), "--log-every", "100",
                                        "--warmup", "1", "--device", device])
-        setup = llama_train.setup(args)
+        setup = llama_train.setup(args, config=typed(llama.CONFIGS[name]))
         model = setup.state.model
     if weights is not None:
         model.load_state_dict(weights)
@@ -2573,6 +2625,183 @@ def phase_v(build, peak, flash, rope_mod) -> dict:
     return results
 
 
+# Phase (w): fp32 through the four kernels, and the head dims that are a
+# multiple of 8 but not of 16. The fp32 kernels are checked in every case
+# at a head dim on each instance width (16 and 64 on the 64-wide, 128,
+# 256), and each width's instances timed at [8, 2048, 8, D] causal; 8 and
+# 24 go to the 64-wide instances, 72 to the 128-wide and 136 to the
+# 256-wide, in both dtypes. llama-400m trains in fp32 at full width and
+# depth, and the JAX package's tiny configurations run in fp32 card against
+# CPU.
+HEAD_DIMS_W = (16, 64, 128, 256)
+TIMED_W = (64, 128, 256)
+NEW_HEAD_DIMS = (8, 24, 72, 136)
+# fp32 on both sides: the card's kernels and the CPU's plain versions sum
+# in other orders (unit roundoff 6e-8) over 2 layers (tiny) or 24
+# (llama-400m); a loss or gradient that a kernel got wrong differs by far
+# more.
+PARITY_TOL_F32 = 1e-4
+LOSS_TOL_F32 = 1e-5
+GRAD_TOL_F32 = 1e-4
+
+
+def fp32_tiny_parity(build) -> None:
+    """llama-tiny, moe-tiny and bert-tiny in fp32 (head_dim 16: the fp32
+    _d64 kernels) from one set of seeded weights: one forward and backward
+    on the card (kernels) against the CPU (plain versions), the loss and
+    every gradient (rel L2) within PARITY_TOL_F32 (BERT's key bias, whose
+    exact gradient is 0, by its norm beside the query bias's); then
+    TINY_STEPS steps on each side from the same weights, their losses
+    within PARITY_TOL_F32 and the card's launches a step
+    expected_launches' in fp32."""
+    import numpy as np
+
+    from tf_operator_tpu_torch.models import bert, llama
+    from tf_operator_tpu_torch.train.train_step import loss_fn
+
+    f32 = torch.float32
+    rng = np.random.default_rng(32)
+    for name in ("llama-tiny", "moe-tiny", "bert-tiny"):
+        is_bert = name.startswith("bert")
+        model_cls = bert.Bert if is_bert else llama.Llama
+        cfg = dataclasses.replace((bert.CONFIGS if is_bert else llama.CONFIGS)[name],
+                                  dtype=f32, param_dtype=f32)
+        seq = cfg.max_len if is_bert else cfg.max_seq_len
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, seq + 1))).long()
+        cpu_model = model_cls(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        card_model = model_cls(cfg, device="cuda")
+        card_model.load_state_dict(cpu_model.state_dict())
+        build.reset_launches()
+        card_loss = loss_fn(card_model, tokens.cuda())
+        card_loss.backward()
+        launched = {k: n for k, n in build.LAUNCHES.items() if n}
+        cpu_loss = loss_fn(cpu_model, tokens)
+        cpu_loss.backward()
+        cpu_g = {n: p.grad for n, p in cpu_model.named_parameters()}
+        card_g = {n: p.grad.cpu() for n, p in card_model.named_parameters()}
+        zero = [n for n in card_g if n.endswith(ZERO_GRAD)]
+        noise = max((card_g[n].norm() / cpu_g[n.replace(ZERO_GRAD, ".query.bias")].norm()).item()
+                    for n in zero) if zero else 0.0
+        worst, worst_name = worst_rel({n: g for n, g in card_g.items() if n not in zero}, cpu_g)
+        loss_rel = rel(card_loss.item(), cpu_loss.item())
+        log(f"[w] {name} fp32, one backward: loss card {card_loss.item():.7f} cpu "
+            f"{cpu_loss.item():.7f} rel {loss_rel:.3e}; worst gradient rel L2 {worst:.3e} at "
+            f"{worst_name} over {len(card_g)} parameters"
+            + (f"; largest zero-gradient norm {noise:.3e} of the query bias's" if zero else "")
+            + f" (tol {PARITY_TOL_F32}); card launches {launched}")
+        if not max(loss_rel, worst, noise) <= PARITY_TOL_F32:
+            raise AssertionError(f"{name} fp32: card against CPU loss {loss_rel:.3e}, gradient "
+                                 f"{worst:.3e} at {worst_name}, zero-gradient {noise:.3e}")
+        if "flash_fwd_f32_d64" not in launched or any("_f32" not in k for k in launched):
+            raise AssertionError(f"{name} fp32: launches {launched} are not the fp32 kernels'")
+        del cpu_model, card_model, cpu_g, card_g
+        cpu, _, start = tiny_steps(name, "cpu", dtype=f32)
+        card, per_step, _ = tiny_steps(name, "cuda", start, dtype=f32)
+        worst = max(rel(a, b) for a, b in zip(card, cpu))
+        log(f"[w] {name} fp32, {TINY_STEPS} steps: losses card {card} cpu {cpu}, worst rel "
+            f"{worst:.3e} (tol {PARITY_TOL_F32}); card launches a step {per_step}")
+        if len(card) != len(cpu) or not worst <= PARITY_TOL_F32:
+            raise AssertionError(f"{name} fp32: card losses {card} against the CPU's {cpu}")
+        want = expected_launches("dots", cfg.n_layers, cfg.dim // cfg.n_heads, cfg.remat,
+                                 dtype=f32)
+        if is_bert:  # no rope
+            want["rope_f32"] = 0
+        if per_step != want:
+            raise AssertionError(f"{name} fp32: launches a step {per_step}, expected {want}")
+        gc.collect()
+
+
+def phase_w(build, peak, flash, rope_mod) -> dict:
+    """fp32 through the kernels (phase c's checks at TOL_F32 in CASES and
+    CASES_D64 at HEAD_DIMS_W, each instance width timed at [8, 2048, 8, D]
+    causal); phase c's checks at NEW_HEAD_DIMS in bf16 and fp32, each timed
+    at [8, 2048, 8, D]; a 2-layer llama-tiny of 4 heads of each of those in
+    both dtypes (2 steps, launches a step); llama-400m in fp32 against the
+    same weights under the fp32 "xla" attention (losses within
+    LOSS_TOL_F32, one row's gradients within GRAD_TOL_F32); and
+    :func:`fp32_tiny_parity`. Returns the fp32 kernels' entries and those
+    at NEW_HEAD_DIMS, named "<counter>[d<head_dim>]"."""
+    from tf_operator_tpu_torch.models import llama
+
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    all_cases = {**CASES, **CASES_D64}
+    results, run_of = {}, {}
+
+    def checks(d, dtype, tol, timed, run_key):
+        """Phase c's checks at head dim d in every case, timed at
+        main_d<d> when ``timed``; the entries' launches come from the run
+        ``run_key`` of ``runs`` (None: the fp32 llama-400m)."""
+        cases = {f"{name}_d{d}": dict(c, d=d) for name, c in all_cases.items()}
+        entries = phase_c(flash, rope_mod, peak, cases, main=f"main_d{d}" if timed else None,
+                          label="w", dtype=dtype, tol=tol)
+        for kernel, res in entries.items():
+            res["counter"] = (rope_mod.kernel_name(dtype) if kernel == "rope"
+                              else flash.kernel_name(kernel, d, dtype))
+            res["name"] = f"{res['counter']}[d{d}]"
+            res["head_dim"] = d
+            results[res["name"]] = res
+            run_of[res["name"]] = run_key
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for d in HEAD_DIMS_W:
+        checks(d, f32, TOL_F32, d in TIMED_W, None if d == 128 else (24 if d == 64 else 136, f32))
+    t1 = time.perf_counter()
+    for d in NEW_HEAD_DIMS:
+        for dtype, tol in ((torch.bfloat16, TOL), (f32, TOL_F32)):
+            checks(d, dtype, tol, True, (d, dtype))
+    t2 = time.perf_counter()
+    # llama-tiny (4 heads, 2 KV heads, 2 layers) at each new head dim.
+    runs = {(d, dtype): train_run(build, peak, "w", SWEEP_ARGS, config=dataclasses.replace(
+                llama.CONFIGS["llama-tiny"], dim=4 * d, ffn_dim=8 * d, dtype=dtype,
+                param_dtype=dtype))
+            for d in NEW_HEAD_DIMS for dtype in (torch.bfloat16, f32)}
+    t3 = time.perf_counter()
+    fp32_tiny_parity(build)
+    t4 = time.perf_counter()
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama-400m"], dtype=f32, param_dtype=f32)
+    xla_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    argv = [*MAIN_ARGS, "--steps", "4"]
+    full = train_run(build, peak, "w", argv, config=cfg)
+    xla = train_run(build, peak, "w", argv, config=xla_cfg)
+    launched = {k: n for k, n in full["per_step"].items() if n}
+    log(f"[w] llama-400m in fp32 ({cfg.param_count():,} parameters): step "
+        f"{full['step_s']:.4f} s, tokens/s {full['tokens_per_s']:.1f}, MFU {full['mfu']:.4f} "
+        f"against a third of the TF32 peak (3xTF32), peak {full['peak_gib']:.3f} GiB, "
+        f"launches a step {launched}; under the plain fp32 xla attention step "
+        f"{xla['step_s']:.4f} s, peak {xla['peak_gib']:.3f} GiB")
+    if abs(full["losses"][0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"first loss {full['losses'][0]} is far from ln(vocab)")
+    worst = max(rel(a, b) for a, b in zip(full["losses"], xla["losses"]))
+    log(f"[w] llama-400m fp32, flash kernels against xla: losses {full['losses']} against "
+        f"{xla['losses']}: worst rel {worst:.3e} (tol {LOSS_TOL_F32})")
+    if len(full["losses"]) != len(xla["losses"]) or not worst <= LOSS_TOL_F32:
+        raise AssertionError(f"llama-400m fp32: losses differ from xla's by {worst:.3e}")
+    del xla
+    loss_f, flash_g, weights = row_grads(argv, cfg)
+    loss_x, xla_g, _ = row_grads(argv, xla_cfg, weights=weights)
+    gap, gap_name = worst_rel(flash_g, xla_g)
+    log(f"[w] llama-400m fp32, one row's backward: loss flash {loss_f:.7f} xla {loss_x:.7f} "
+        f"rel {rel(loss_f, loss_x):.3e} (tol {LOSS_TOL_F32}); worst gradient rel L2 {gap:.3e} "
+        f"at {gap_name} over {len(flash_g)} parameters (tol {GRAD_TOL_F32})")
+    if not rel(loss_f, loss_x) <= LOSS_TOL_F32 or not gap <= GRAD_TOL_F32:
+        raise AssertionError(f"llama-400m fp32: the kernels' loss {loss_f} against xla's "
+                             f"{loss_x}, or gradient of {gap_name} {gap:.3e} apart")
+    del flash_g, xla_g, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    log(f"[w] seconds: fp32 kernels {t1 - t0:.1f}, new head dims {t2 - t1:.1f}, 2-layer runs "
+        f"{t3 - t2:.1f}, tiny parity {t4 - t3:.1f}, llama-400m fp32 {t5 - t4:.1f}")
+    for name, res in results.items():
+        run = full if run_of[name] is None else runs[run_of[name]]
+        res["launches"] = run["launches"][res["counter"]]
+        res["launches_per_step"] = run["per_step"][res["counter"]]
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2620,6 +2849,7 @@ def main() -> int:
     phase_t(build, peak, main)
     configs = phase_u(build, peak, flash, rope_mod)
     head_dims = phase_v(build, peak, flash, rope_mod)
+    fp32 = phase_w(build, peak, flash, rope_mod)
     for name, res in results.items():
         res["launches"] = main["launches"][name]
         res["launches_per_step"] = main["per_step"][name]
@@ -2630,7 +2860,7 @@ def main() -> int:
     log(smi_line())
     log(json.dumps({"kernels": list(results.values()) + list(moe.values())
                     + list(d64.values()) + list(configs.values())
-                    + list(head_dims.values())}))
+                    + list(head_dims.values()) + list(fp32.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

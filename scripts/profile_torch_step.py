@@ -34,7 +34,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PORT_KERNELS = ("rope_kernel", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+PORT_KERNELS = ("rope_kernel", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                "flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel")
 
 
 def group_of(name: str) -> str:

@@ -193,26 +193,26 @@ def test_kernels_take_head_dims_64_and_128_only():
     for d in (64, 128):
         t = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
         flash._check_kernel_qkv(t, t, t, causal=True)
-    t = torch.zeros(1, 64, 2, 24, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"multiple of 16 from 16 to 256, not 24"):
+    t = torch.zeros(1, 64, 2, 20, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 256, not 20"):
         flash._check_kernel_qkv(t, t, t, causal=True)
     assert [flash.kernel_name("flash_dq", d) for d in (128, 64)] == ["flash_dq", "flash_dq_d64"]
 
 
 @pytest.mark.parametrize("taken", [True, False], ids=["taken", "refused"])
 def test_kernel_head_dim_rule(taken):
-    """The kernels take a head_dim that is a multiple of 16 from 16 to 256
-    (16, 80 and 256 here) and refuse any other (8, 24, 272) before a
+    """The kernels take a head_dim that is a multiple of 8 from 8 to 256
+    (16, 80 and 256 here) and refuse any other (4, 20, 272) before a
     launch, naming the rule and its ROADMAP item; each head dim counts on
     the instance that serves it, and flash_work counts the true head dim,
     not the instance's width."""
     if not taken:
-        for d in (8, 24, 272):
+        for d in (4, 20, 272):
             t = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
-            with pytest.raises(ValueError, match=rf"multiple of 16 from 16 to 256, not {d} "
+            with pytest.raises(ValueError, match=rf"multiple of 8 from 8 to 256, not {d} "
                                                  r"\(ROADMAP.md, Queue 2"):
                 flash._check_kernel_qkv(t, t, t, causal=True)
-            with pytest.raises(ValueError, match="multiple of 16"):
+            with pytest.raises(ValueError, match="multiple of 8"):
                 flash.kernel_name("flash_dkv", d)
         return
     for d in (16, 80, 256):

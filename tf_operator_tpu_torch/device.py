@@ -15,21 +15,28 @@ import torch
 
 
 class Peak(NamedTuple):
-    """Dense bf16 tensor-core TFLOP/s and device-memory TB/s of one card."""
+    """Dense bf16 tensor-core TFLOP/s, device-memory TB/s and dense TF32
+    tensor-core TFLOP/s of one card. fp32 work is scored against the TF32
+    rate (:func:`tflops_for`)."""
 
     bf16_tflops: float
     hbm_tbps: float
+    tf32_tflops: float
 
 
 # Keyed by a lower-case fragment of torch.cuda.get_device_name(); the first
 # match wins, so the specific parts come before the generic "h100".
 # (NVIDIA data sheets, dense rates without sparsity.)
 PEAKS = {
-    "h100 pcie": Peak(756.0, 2.0),
-    "h100 nvl": Peak(835.0, 3.9),
-    "h200": Peak(989.0, 4.8),
-    "h100": Peak(989.0, 3.35),  # SXM5: "NVIDIA H100 80GB HBM3"
+    "h100 pcie": Peak(756.0, 2.0, 378.0),
+    "h100 nvl": Peak(835.0, 3.9, 417.5),
+    "h200": Peak(989.0, 4.8, 494.7),
+    "h100": Peak(989.0, 3.35, 494.7),  # SXM5: "NVIDIA H100 80GB HBM3"
 }
+# fp32 products that keep fp32 accuracy on the tensor cores take three TF32
+# products each (3xTF32: the high parts' product and the two cross terms),
+# so their least time is the FLOPs over a third of the TF32 peak.
+TF32_PASSES = 3
 ASSUMED = "h100"
 
 
@@ -45,6 +52,16 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def tflops_for(peak: Peak, dtype: torch.dtype) -> float:
+    """The TFLOP/s that ``dtype``'s products are scored against: the bf16
+    peak for bf16, a third of the TF32 peak (TF32_PASSES) for fp32."""
+    if dtype == torch.bfloat16:
+        return peak.bf16_tflops
+    if dtype == torch.float32:
+        return peak.tf32_tflops / TF32_PASSES
+    raise ValueError(f"no peak for {dtype}")
 
 
 def peak_for(name: str) -> tuple[Peak, Optional[str]]:

@@ -14,8 +14,11 @@ are ``c_void_p``; the function returns ``cudaGetLastError()`` after its
 launch, and :func:`check` raises on a non-zero code; kernels launch on
 ``torch.cuda.current_stream()``, allocate nothing and do not synchronise.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; the chip
-smoke resets it before the main path and reads it after.
+Each kernel is built for bf16 and fp32 inputs: the fp32 one's C entry
+point and launch counter carry ``_f32`` after the kernel's name
+(:func:`suffix`, :func:`entry`). ``LAUNCHES`` counts, per kernel, the
+launches its wrapper made; the chip smoke resets it before the main path
+and reads it after.
 """
 
 from __future__ import annotations
@@ -37,12 +40,17 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-# The flash kernels' 128-wide instances (head_dim 80 to 128), then their
-# 64-wide (16 to 64) and 256-wide (144 to 256) ones (ops/flash.py
-# kernel_name).
-KERNELS = ("rope", "flash_fwd", "flash_dq", "flash_dkv",
-           "flash_fwd_d64", "flash_dq_d64", "flash_dkv_d64",
-           "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256")
+# The dtypes the kernels take, and the suffix of their C entry points' and
+# launch counters' names; fp16 is not among them (ROADMAP.md, Queue 2).
+SUFFIXES = {"bfloat16": "", "float32": "_f32"}
+# Per dtype: rope, the flash kernels' 128-wide instances (head_dim 72 to
+# 128), then their 64-wide (8 to 64) and 256-wide (136 to 256) ones
+# (ops/flash.py kernel_name; ops/rope.py kernel_name).
+_FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+KERNELS = tuple(
+    name for sfx in SUFFIXES.values()
+    for name in (f"rope{sfx}", *(f"{k}{sfx}" for k in _FLASH),
+                 *(f"{k}{sfx}_d{w}" for w in (64, 256) for k in _FLASH)))
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _lock = threading.Lock()
@@ -52,14 +60,33 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (ops/csrc/*.cu).
+_FWD = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_DQ = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_DKV = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_ROPE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "tk_rope": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tk_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "tk_flash_dq": [_P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "tk_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    f"tk_{kernel}{sfx}": argtypes
+    for kernel, argtypes in (("rope", _ROPE), ("flash_fwd", _FWD), ("flash_dq", _DQ),
+                             ("flash_dkv", _DKV))
+    for sfx in SUFFIXES.values()
 }
+
+
+def suffix(dtype, what: str) -> str:
+    """The suffix of the kernels' names for torch ``dtype``: "" for bf16,
+    "_f32" for fp32; any other dtype raises ``TypeError`` naming ``what``
+    refused it."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in SUFFIXES:
+        raise TypeError(f"{what} take bfloat16 or float32, not {dtype} "
+                        f"(ROADMAP.md, Queue 2: fp16)")
+    return SUFFIXES[name]
+
+
+def entry(lib: ctypes.CDLL, kernel: str, dtype):
+    """The C entry point of ``kernel`` ("rope", "flash_fwd", ...) for
+    ``dtype``: tk_<kernel> for bf16, tk_<kernel>_f32 for fp32."""
+    return getattr(lib, f"tk_{kernel}{suffix(dtype, kernel)}")
 
 
 def reset_launches() -> None:

@@ -16,8 +16,8 @@
 // 512, 12 heads x 64, non-causal) 25.8 GFLOP against 76.3 MB.
 //
 // Design (sm_90a, the building blocks in hopper.cuh). Three instances,
-// the template argument kD: kD = 64 serves head_dim 16..64, 128 serves
-// 80..128 and 256 serves 144..256 (multiples of 16). The tensor maps carry
+// the template argument kD: kD = 64 serves head_dim 8..64, 128 serves
+// 72..128 and 256 serves 136..256 (multiples of 8). The tensor maps carry
 // the true head_dim, so TMA zero-fills the tile columns past it on every
 // load and clips them on the stores of dK and dV (hopper.cuh, "Head
 // dims"); lse and delta are per query, not per column. At kD 64 and 128,
@@ -338,16 +338,16 @@ extern "C" int tk_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int B,
                             int H, int KVH, int Sq, int Sk, int D, int causal, float scale,
                             void* stream) {
-  // Head dims that are a multiple of 16 from 16 to 256 (ops/flash.py
+  // Head dims that are a multiple of 8 from 8 to 256 (ops/flash.py
   // refuses every other before it calls).
   cudaError_t err = cudaErrorInvalidValue;
-  if (D % 16 == 0 && D >= 16 && D <= 64)
+  if (D % 8 == 0 && D >= 8 && D <= 64)
     err = launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, causal, scale,
                      stream);
-  else if (D % 16 == 0 && D > 64 && D <= 128)
+  else if (D % 8 == 0 && D > 64 && D <= 128)
     err = launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, causal, scale,
                       stream);
-  else if (D % 16 == 0 && D > 128 && D <= 256)
+  else if (D % 8 == 0 && D > 128 && D <= 256)
     err = launch<256>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, Sq, Sk, D, causal, scale,
                       stream);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -16,8 +16,8 @@
 //
 // Design (sm_90a, the building blocks in hopper.cuh): the dK/dV kernel's,
 // mirrored. Three instances, the template argument kD: kD = 64 serves
-// head_dim 16..64, 128 serves 80..128 and 256 serves 144..256 (multiples
-// of 16). The tensor maps carry the true head_dim, so TMA zero-fills the
+// head_dim 8..64, 128 serves 72..128 and 256 serves 136..256 (multiples
+// of 8). The tensor maps carry the true head_dim, so TMA zero-fills the
 // tile columns past it on every load and clips them on the store of dQ
 // (hopper.cuh, "Head dims"); lse and delta are per row, not per column.
 // At kD 64 and 128, one block per (128 Q rows, q head, batch), two
@@ -286,16 +286,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 extern "C" int tk_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int B, int H, int KVH,
                            int Sq, int Sk, int D, int causal, float scale, void* stream) {
-  // Head dims that are a multiple of 16 from 16 to 256 (ops/flash.py
+  // Head dims that are a multiple of 8 from 8 to 256 (ops/flash.py
   // refuses every other before it calls).
   cudaError_t err = cudaErrorInvalidValue;
-  if (D % 16 == 0 && D >= 16 && D <= 64)
+  if (D % 8 == 0 && D >= 8 && D <= 64)
     err = launch<64>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, causal, scale,
                      stream);
-  else if (D % 16 == 0 && D > 64 && D <= 128)
+  else if (D % 8 == 0 && D > 64 && D <= 128)
     err = launch<128>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, causal, scale,
                       stream);
-  else if (D % 16 == 0 && D > 128 && D <= 256)
+  else if (D % 8 == 0 && D > 128 && D <= 256)
     err = launch<256>(q, k, v, dout, lse, delta, dq, B, H, KVH, Sq, Sk, D, causal, scale,
                       stream);
   if (err != cudaSuccess) return static_cast<int>(err);

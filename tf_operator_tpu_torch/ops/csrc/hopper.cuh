@@ -29,13 +29,14 @@
 //     unread by a product of N = 64.
 //
 // Head dims. A kernel instance kD (64, 128 or 256) serves every head_dim D
-// that is a multiple of 16 with kD / 2 < D <= kD (16 <= D <= 64 for the
+// that is a multiple of 8 with kD / 2 < D <= kD (8 <= D <= 64 for the
 // 64 instance). The tensor maps carry the true D as the inner dimension
 // (make_bshd_map), while the boxes stay 64 columns wide: TMA fills the
 // columns at D and beyond with zeros on a load (a box wholly past D is all
 // zeros) and does not write them on a store. Zero columns add nothing to
-// Q K^T or dO V^T and make zero columns of O, dQ, dK and dV, which are
-// never stored; every store of the kernels goes through TMA.
+// Q K^T or dO V^T (a k16 step of wgmma that straddles D multiplies zeros
+// past it) and make zero columns of O, dQ, dK and dV, which are never
+// stored; every store of the kernels goes through TMA.
 #pragma once
 
 #include "common.cuh"
@@ -408,7 +409,8 @@ inline EncodeTiledFn encode_tiled() {
 // Tensor map over a contiguous bf16 BSHD tensor [B, S, H, D] as the 4-D
 // (D, H, S, B), boxes of 64 head dims x 1 head x `box_rows` rows x 1 batch
 // in the 128-byte swizzle. D is the tensor's own head_dim (a multiple of
-// 16, so that a row is a multiple of 32 bytes), not the instance's: the
+// 8, so that a row is a multiple of 16 bytes, as a tensor map's strides
+// must be), not the instance's: the
 // columns of a box at D and beyond are zeros on a load and left out of a
 // store. Because the batch is a dimension of its own, the zero fill past
 // the end of a sequence stops at that batch's end.

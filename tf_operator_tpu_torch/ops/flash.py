@@ -16,15 +16,19 @@ saves the forward's (o, lse) (the JAX package tags them ``flash_o``/
 ``flash_lse``) names them ``"flash"`` on its tape (``ops/remat.py``): the
 block's replay then takes them back and launches no second forward.
 
-A CUDA tensor goes through the kernels (bf16, a head_dim that is a
-multiple of 16 from 16 to 256, fixed tiles): ``ops/csrc/flash_fwd.cu``
-(forward), ``ops/csrc/flash_dq.cu`` (dQ) and ``ops/csrc/flash_dkv.cu``
-(dK/dV), each built as three instances, for tiles 64, 128 and 256 columns
-wide; a head_dim goes to the narrowest that holds it, whose columns past it
-TMA fills with zeros, and the instances' launches count apart
-(``kernel_name``: ``flash_fwd_d64`` up to 64, ``flash_fwd`` up to 128,
-``flash_fwd_d256`` above). Any other head_dim raises before a launch: no
-fallback. A CPU tensor goes through the plain versions,
+A CUDA tensor goes through the kernels (bf16 or fp32, a head_dim that is a
+multiple of 8 from 8 to 256, fixed tiles). bf16 runs on tensor cores:
+``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ) and
+``ops/csrc/flash_dkv.cu`` (dK/dV); fp32 on FMAs at fp32's accuracy, as the
+Pallas kernels keep fp32 inputs' products in fp32:
+``ops/csrc/flash_fwd_f32.cu``, ``flash_dq_f32.cu`` and ``flash_dkv_f32.cu``.
+Each is built as three instances, for tiles 64, 128 and 256 columns wide; a
+head_dim goes to the narrowest that holds it, whose columns past it are
+zeros (TMA's fill) or never read (fp32), and the instances' launches count
+apart (``kernel_name``: ``flash_fwd_d64`` up to 64, ``flash_fwd`` up to
+128, ``flash_fwd_d256`` above, with ``_f32`` after the kernel's name for
+fp32: ``flash_fwd_f32_d64``). Any other dtype or head_dim raises before a
+launch: no fallback. A CPU tensor goes through the plain versions,
 which emulate the kernels' blockwise online-softmax recurrence with
 ``block_q``/``block_k`` blocks that step down to a divisor of the sequence
 length (``_block_size``). :func:`flash_work` counts the least bytes and
@@ -43,8 +47,8 @@ from .roofline import Work
 MASK_VALUE = -1e30
 # The head dims the kernels take: a multiple of HEAD_DIM_STEP up to
 # MAX_HEAD_DIM; any other is refused on the card (ROADMAP.md, Queue 2,
-# "head dims that are not a multiple of 16, or above 256").
-HEAD_DIM_STEP = 16
+# "head dims above 256 or not a multiple of 8").
+HEAD_DIM_STEP = 8
 MAX_HEAD_DIM = 256
 # The kernel instances, by the width of their tiles, narrowest first.
 KERNEL_WIDTHS = (64, 128, 256)
@@ -55,18 +59,21 @@ def kernel_width(head_dim: int) -> int:
     if head_dim % HEAD_DIM_STEP or not 0 < head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"flash kernels take a head_dim that is a multiple of "
                          f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {MAX_HEAD_DIM}, not "
-                         f"{head_dim} (ROADMAP.md, Queue 2: head dims that are not a "
-                         f"multiple of 16, or above 256)")
+                         f"{head_dim} (ROADMAP.md, Queue 2: head dims above 256 or not a "
+                         f"multiple of 8)")
     return next(w for w in KERNEL_WIDTHS if head_dim <= w)
 
 
-def kernel_name(kernel: str, head_dim: int) -> str:
+def kernel_name(kernel: str, head_dim: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The launch counter of ``kernel`` ("flash_fwd", "flash_dq" or
-    "flash_dkv") at ``head_dim``: the kernel's own name for the 128-wide
-    instance (head_dim 80 to 128), with ``_d64`` for the 64-wide one (16 to
-    64) and ``_d256`` for the 256-wide one (144 to 256)."""
+    "flash_dkv") at ``head_dim`` on ``dtype`` inputs: the kernel's own name
+    (``_f32`` after it for fp32) for the 128-wide instance (head_dim 72 to
+    128), with ``_d64`` for the 64-wide one (8 to 64) and ``_d256`` for the
+    256-wide one (136 to 256); a dtype other than bf16 and fp32 raises
+    ``TypeError``."""
     width = kernel_width(head_dim)
-    return kernel if width == 128 else f"{kernel}_d{width}"
+    name = kernel + build.suffix(dtype, "flash kernels")
+    return name if width == 128 else f"{name}_d{width}"
 
 
 def _block_size(want: int, total: int) -> int:
@@ -98,10 +105,11 @@ def _grouped(q, k):
 
 
 def flash_work(b: int, s_q: int, s_k: int, h: int, kvh: int, d: int,
-               causal: bool) -> dict[str, Work]:
-    """Bytes and tensor-core FLOPs of the forward, dQ and dK/dV kernels on
-    bf16 q ``[b, s_q, h, d]`` and k/v ``[b, s_k, kvh, d]``, with fp32 lse and
-    delta ``[b, h, s_q]``. FLOPs count only the visible (q, k) pairs: 2 per
+               causal: bool, itemsize: int = 2) -> dict[str, Work]:
+    """Bytes and FLOPs of the forward, dQ and dK/dV kernels on q
+    ``[b, s_q, h, d]`` and k/v ``[b, s_k, kvh, d]`` of ``itemsize``-byte
+    elements (2 for bf16, 4 for fp32), with fp32 lse and delta
+    ``[b, h, s_q]``. FLOPs count only the visible (q, k) pairs: 2 per
     pair and head dim for each product, of which the forward has 2 (Q K^T,
     P V), dQ 3 (adds dO V^T, dS K) and dK/dV 4 (adds dS^T Q, P^T dO). ``d``
     is the tensors' true head dim: the zero columns an instance wider than
@@ -110,8 +118,8 @@ def flash_work(b: int, s_q: int, s_k: int, h: int, kvh: int, d: int,
     if causal and s_q != s_k:
         raise ValueError("causal attention requires s_q == s_k")
     pairs = b * h * (s_q * (s_q + 1) // 2 if causal else s_q * s_k)
-    q_bytes = 2 * b * s_q * h * d        # q, o, dO and dQ alike
-    kv_bytes = 2 * b * s_k * kvh * d     # k, v, dK and dV alike
+    q_bytes = itemsize * b * s_q * h * d     # q, o, dO and dQ alike
+    kv_bytes = itemsize * b * s_k * kvh * d  # k, v, dK and dV alike
     rows_bytes = 4 * b * h * s_q         # lse, delta
     qkv = q_bytes + 2 * kv_bytes
     return {
@@ -248,9 +256,11 @@ def _check_cuda(**tensors):
 
 def _check_kernel_qkv(q, k, v, causal):
     _check_args(q, k, v, causal)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernels take bfloat16; {name} is {t.dtype}")
+    build.suffix(q.dtype, "flash kernels")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash kernels take q, k and v of one dtype; q is {q.dtype}, "
+                            f"{name} is {t.dtype}")
     kernel_width(q.shape[-1])
     if q.shape[0] != k.shape[0] or q.shape[-1] != k.shape[-1]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
@@ -276,19 +286,20 @@ def _dims(q, k):
 
 
 def flash_forward_cuda(q, k, v, causal=True):
-    """Launch the forward kernel: (o BSHD bf16, lse [b, h, s_q] fp32)."""
+    """Launch the forward kernel: (o BSHD in q's dtype, lse [b, h, s_q]
+    fp32)."""
     _check_kernel_qkv(q, k, v, causal)
     _check_cuda(q=q, k=k, v=v)
     b, h, kvh, s_q, s_k, d = _dims(q, k)
     lib = build.load()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    code = lib.tk_flash_fwd(
+    code = build.entry(lib, "flash_fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, kvh, s_q, s_k, d, int(causal), 1.0 / d**0.5, build.stream_ptr(q.device),
     )
     build.check(lib, code, "flash forward kernel")
-    build.count(kernel_name("flash_fwd", d))
+    build.count(kernel_name("flash_fwd", d, q.dtype))
     return o, lse
 
 
@@ -298,13 +309,13 @@ def flash_dq_cuda(q, k, v, do, lse, delta, causal=True):
     b, h, kvh, s_q, s_k, d = _dims(q, k)
     lib = build.load()
     dq = torch.empty_like(q)
-    code = lib.tk_flash_dq(
+    code = build.entry(lib, "flash_dq", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, h, kvh, s_q, s_k, d, int(causal),
         1.0 / d**0.5, build.stream_ptr(q.device),
     )
     build.check(lib, code, "flash dQ kernel")
-    build.count(kernel_name("flash_dq", d))
+    build.count(kernel_name("flash_dq", d, q.dtype))
     return dq
 
 
@@ -314,13 +325,13 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, causal=True):
     b, h, kvh, s_q, s_k, d = _dims(q, k)
     lib = build.load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    code = lib.tk_flash_dkv(
+    code = build.entry(lib, "flash_dkv", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s_q, s_k, d,
         int(causal), 1.0 / d**0.5, build.stream_ptr(q.device),
     )
     build.check(lib, code, "flash dK/dV kernel")
-    build.count(kernel_name("flash_dkv", d))
+    build.count(kernel_name("flash_dkv", d, q.dtype))
     return dk, dv
 
 

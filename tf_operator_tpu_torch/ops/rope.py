@@ -8,7 +8,9 @@ the backward is the same kernel with ``inverse=True``, which negates sin
 inside the kernel (``_rope_bwd`` in the JAX package passes ``-sin``); the
 tables get no gradient.
 
-A CUDA tensor goes through ``ops/csrc/rope.cu``; a CPU tensor through
+A CUDA tensor goes through ``ops/csrc/rope.cu`` (bf16 or fp32 x, a
+head_dim that is a multiple of 8; launches count as "rope" and
+"rope_f32"); a CPU tensor through
 :func:`rope_plain`. A forward given a ``tag`` is served from the block's
 remat tape (``ops/remat.py``) in the replay when the policy saves that tag
 ("dots+rope" saves ``rope_q`` and ``rope_k``). :func:`rope_work` counts the
@@ -25,11 +27,18 @@ from . import build, remat
 from .roofline import Work
 
 
-def rope_work(b: int, s: int, h: int, d: int) -> Work:
-    """Bytes of one rope call on bf16 x ``[b, s, h, d]``: x read and the
-    result written once, and both fp32 ``[s, d/2]`` tables read once. Its
-    6 flops a pair are not tensor-core work."""
-    return Work(2 * 2 * b * s * h * d + 2 * 4 * s * (d // 2), 0)
+def rope_work(b: int, s: int, h: int, d: int, itemsize: int = 2) -> Work:
+    """Bytes of one rope call on x ``[b, s, h, d]`` of ``itemsize``-byte
+    elements (2 for bf16, 4 for fp32): x read and the result written once,
+    and both fp32 ``[s, d/2]`` tables read once. Its 6 flops a pair are not
+    tensor-core work."""
+    return Work(2 * itemsize * b * s * h * d + 2 * 4 * s * (d // 2), 0)
+
+
+def kernel_name(dtype: torch.dtype) -> str:
+    """The launch counter of the rope kernel on ``dtype`` x: "rope" for
+    bf16, "rope_f32" for fp32; any other dtype raises ``TypeError``."""
+    return "rope" + build.suffix(dtype, "rope kernels")
 
 
 def rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -46,15 +55,14 @@ def rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 def rope_cuda(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
               inverse: bool = False) -> torch.Tensor:
-    """Launch the rope kernel (bf16 x, head_dim a multiple of 16) on x's
-    device and the current stream; ``inverse`` rotates by -θ."""
+    """Launch the rope kernel (bf16 or fp32 x, head_dim a multiple of 8) on
+    x's device and the current stream; ``inverse`` rotates by -θ."""
     b, s, h, d = x.shape
     if not x.is_cuda:
         raise ValueError(f"rope kernel takes a CUDA tensor, not one on {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"rope kernel takes bfloat16, not {x.dtype}")
-    if d % 16:
-        raise ValueError(f"rope kernel takes head_dim a multiple of 16, got {d}")
+    counter = kernel_name(x.dtype)
+    if d % 8:
+        raise ValueError(f"rope kernel takes head_dim a multiple of 8, got {d}")
     for name, t in (("cos", cos), ("sin", sin)):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {x.device}")
@@ -66,12 +74,12 @@ def rope_cuda(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         raise ValueError("rope kernel takes a contiguous, 16-byte aligned x")
     lib = build.load()
     out = torch.empty_like(x)
-    code = lib.tk_rope(
+    code = build.entry(lib, "rope", x.dtype)(
         x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
         b, s, h, d, int(inverse), build.stream_ptr(x.device),
     )
     build.check(lib, code, "rope kernel")
-    build.count("rope")
+    build.count(counter)
     return out
 
 
