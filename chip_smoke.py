@@ -7,6 +7,11 @@ Phases (any failure raises and the script exits non-zero):
   (a) card: the nvidia-smi name and power limit;
   (b) build: nvcc builds every kernel of tf_operator_tpu_torch/ops/csrc
       into build/torch_kernels/ (timed; registers and spills printed);
+      then one-wgmma probes of how the tensor core reads an fp32 operand
+      of a .tf32 product (ops/flash.py tf32_probe): the fp32 forward and
+      dK/dV kernels assume that it truncates the value to TF32 and that
+      the register A fragment has their layout (ops/csrc/tf32x3.cuh), and
+      the phase fails if either does not hold;
   (c) kernels against their plain versions, on the card in bf16: rope
       (forward and the inverse backward), the flash forward (o, lse), dQ
       and dK/dV (with and without a dlse cotangent), at the llama-400m
@@ -234,9 +239,12 @@ Phases (any failure raises and the script exits non-zero):
       (:func:`grads_against_fp32`);
   (w) fp32 through the four kernels and the head dims that are a multiple
       of 8 (:func:`phase_w`): phase c's checks in fp32 (rope_f32 and the
-      flash_*_f32 instances, FMAs at fp32's accuracy) in every case of
-      CASES and CASES_D64 at head dims 16, 64, 128 and 256 against the
-      fp32 plain versions on the card (TF32 off), at TOL_F32, each width's
+      flash_*_f32 instances: the forward and dK/dV 3xTF32 on the tensor
+      cores, dK/dV at 256 and dQ FMAs, all at fp32's accuracy) in every
+      case of CASES and CASES_D64 at head dims 16, 64, 128 and 256 against
+      the fp32 plain versions on the card (TF32 off), at TOL_F32, and at
+      head dims 64 and 128 in two large-logit cases (LARGE_LOGIT: q x 8,
+      a peaky softmax; causal GQA 8:2 and ragged cross-length), each width's
       instances timed at [8, 2048, 8, D] causal (D = 64, 128, 256) beside
       their plain versions and SDPA in fp32, the bound over a third of the
       TF32 peak (3xTF32, device.tflops_for); the same checks at head dims
@@ -2643,6 +2651,12 @@ NEW_HEAD_DIMS = (8, 24, 72, 136)
 PARITY_TOL_F32 = 1e-4
 LOSS_TOL_F32 = 1e-5
 GRAD_TOL_F32 = 1e-4
+# The large-logit cases: q times LARGE_LOGIT makes the softmax peaky (scores
+# of a few tens), where an error in the products' low bits shows most; at
+# the head dims of the 64- and 128-wide 3xTF32 kernels, at TOL_F32.
+LARGE_LOGIT = 8.0
+LARGE_LOGIT_DIMS = (64, 128)
+LARGE_LOGIT_CASES = ("gqa_8_2", "cross_ragged")
 
 
 def fp32_tiny_parity(build) -> None:
@@ -2747,6 +2761,14 @@ def phase_w(build, peak, flash, rope_mod) -> dict:
 
     for d in HEAD_DIMS_W:
         checks(d, f32, TOL_F32, d in TIMED_W, None if d == 128 else (24 if d == 64 else 136, f32))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for d in LARGE_LOGIT_DIMS:
+        for name in LARGE_LOGIT_CASES:
+            c = dict(CASES[name], d=d)
+            q, k, v, do, dlse = case_inputs(c, gen, dtype=f32)
+            check_flash(flash, f"{name}_d{d}_x{LARGE_LOGIT:g}", q * LARGE_LOGIT, k, v, do, dlse,
+                        c["causal"], "w", TOL_F32)
+            del q, k, v, do, dlse
     t1 = time.perf_counter()
     for d in NEW_HEAD_DIMS:
         for dtype, tol in ((torch.bfloat16, TOL), (f32, TOL_F32)):
@@ -2826,6 +2848,13 @@ def main() -> int:
     for line in build.compiler_report().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
             log(f"[b] {line.strip()}")
+    probe = flash.tf32_probe()
+    log(f"[b] tf32 operand probe: truncates {probe['truncates']}, rounds {probe['rounds']}, "
+        f"exact {probe['exact']}, register A fragment layout {probe['fragment_layout']}; "
+        f"read {probe['values']}")
+    if not (probe["truncates"] and probe["fragment_layout"]):
+        raise AssertionError("the fp32 kernels assume a tensor core that truncates an fp32 "
+                             f"operand to TF32 and their A fragment layout: {probe}")
 
     results = phase_c(flash, rope_mod, peak)
     d64 = phase_c64(flash, peak)

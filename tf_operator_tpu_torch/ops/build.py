@@ -70,6 +70,7 @@ _SIGNATURES = {
                              ("flash_dkv", _DKV))
     for sfx in SUFFIXES.values()
 }
+_SIGNATURES["tk_tf32_probe"] = [_P, _I, _P, _P]  # ops/flash.py tf32_probe
 
 
 def suffix(dtype, what: str) -> str:

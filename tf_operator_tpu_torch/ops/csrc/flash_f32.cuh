@@ -1,29 +1,29 @@
-// Building blocks of the fp32 flash kernels (flash_fwd_f32.cu,
-// flash_dq_f32.cu, flash_dkv_f32.cu): products of fp32 tiles in shared
-// memory by FMAs on the CUDA cores, every sum in fp32.
+// Building blocks of the fp32 flash kernels that run on the CUDA cores:
+// flash_dq_f32.cu at every width and flash_dkv_f32.cu at width 256 (the
+// forward, and dK/dV at 64 and 128, run 3xTF32 on the tensor cores:
+// tf32x3.cuh). Products of fp32 tiles in shared memory by FMAs, every sum
+// in fp32.
 //
-// Why not the tensor cores: one TF32 wgmma rounds each operand to 10
-// mantissa bits (about 1e-3 relative), far from the fp32 results the Pallas
-// kernels give on fp32 inputs (flash_pallas.py keeps the matmul inputs in
-// their own dtype). Three TF32 products a product (3xTF32) would keep fp32
-// accuracy on the tensor cores; that is a later design (ROADMAP.md, Queue 2).
+// Why these stay on FMAs: dQ += dS K needs K transposed for a .tf32
+// wgmma (K-major operands only), a redesign of its own (ROADMAP.md, Queue
+// 2); dK/dV at 256 cannot hold K, V and their lo parts for the 64 keys a
+// warpgroup's wgmma needs in a block's shared memory (flash_dkv_f32.cu).
 //
 // Layout. Every tile is row-major, [rows][kD + 4] floats: the 4 floats of
 // padding keep each row 16-byte aligned and put consecutive rows 4 banks
 // apart, so that 16 threads reading one float4 each from 16 rows hit every
 // bank once per 8 rows. A block has 256 threads, seen as 16 x 16: ty =
 // threadIdx.x / 16 owns the rows 4ty .. 4ty + 3 of the block's 64-row tile
-// and tx = threadIdx.x % 16 a set of columns, so that a row's 16 owners are
-// the 16 lanes of one half-warp and reduce a row by shuffles.
+// and tx = threadIdx.x % 16 a set of columns.
 //
-// Two products cover the kernels' five:
+// Two products cover the kernels' products:
 // - dot_abt: C = A B^T with A [64][kD] and B [16 kJ][kD] both row-major
 //   (S = Q K^T, dP = dO V^T, and in dK/dV their transposes K Q^T and
 //   V dO^T): thread (ty, tx) sums the 4 x kJ outputs (4ty + i, tx + 16j)
 //   over the true head dim, reading float4s along it;
 // - dot_ab: C += A B with A^T [kK][64] (a tile the kernel wrote itself, P
 //   or dS, in the orientation the product wants) and B [kK][kD] row-major
-//   (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q): thread (ty, tx)
+//   (dQ += dS K, dV += P^T dO, dK += dS^T Q): thread (ty, tx)
 //   owns rows 4ty .. 4ty + 3 and the float4 column chunks 4tx + 64jj; a
 //   chunk at or past the true head dim is skipped.
 // Head dims. An instance kD (64, 128 or 256) serves every head dim D that
@@ -129,19 +129,6 @@ __device__ __forceinline__ void store_transposed(float* t, const float (&v)[4][k
   for (int j = 0; j < kJ; ++j)
     *reinterpret_cast<float4*>(t + (tx + 16 * j) * kTStride + 4 * ty) =
         make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-}
-
-// The max (or sum) of v over the 16 lanes of a half-warp (one row's owners).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o *= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o *= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Store the 4 x 4kC accumulators of thread (ty, tx), times `mul`, as rows

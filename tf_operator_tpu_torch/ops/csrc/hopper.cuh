@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu), as inline PTX:
+// flash_dq.cu, flash_dkv.cu, and through tf32x3.cuh flash_fwd_f32.cu and
+// flash_dkv_f32.cu), as inline PTX:
 //
 // - mbarriers: init, arrive, arrive/expect-tx, try-wait on a phase parity;
 // - TMA: a 4-D tiled load into shared memory that completes on an mbarrier,
@@ -406,28 +407,30 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map over a contiguous bf16 BSHD tensor [B, S, H, D] as the 4-D
-// (D, H, S, B), boxes of 64 head dims x 1 head x `box_rows` rows x 1 batch
-// in the 128-byte swizzle. D is the tensor's own head_dim (a multiple of
-// 8, so that a row is a multiple of 16 bytes, as a tensor map's strides
-// must be), not the instance's: the
-// columns of a box at D and beyond are zeros on a load and left out of a
-// store. Because the batch is a dimension of its own, the zero fill past
-// the end of a sequence stops at that batch's end.
+// Tensor map over a contiguous BSHD tensor [B, S, H, D] of bf16 (the
+// default) or fp32 as the 4-D (D, H, S, B), boxes of 128 bytes of head dims
+// (64 bf16 or 32 fp32) x 1 head x `box_rows` rows x 1 batch in the 128-byte
+// swizzle. D is the tensor's own head_dim (a multiple of 8, so that a row is
+// a multiple of 16 bytes, as a tensor map's strides must be), not the
+// instance's: the columns of a box at D and beyond are zeros on a load and
+// left out of a store. Because the batch is a dimension of its own, the zero
+// fill past the end of a sequence stops at that batch's end.
 inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
-                                 int box_rows) {
+                                 int box_rows,
+                                 CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = 2ull * D;  // bytes
+  const cuuint64_t row = elem_bytes * D;  // bytes
   const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem_bytes), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -19,15 +19,18 @@ block's replay then takes them back and launches no second forward.
 A CUDA tensor goes through the kernels (bf16 or fp32, a head_dim that is a
 multiple of 8 from 8 to 256, fixed tiles). bf16 runs on tensor cores:
 ``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ) and
-``ops/csrc/flash_dkv.cu`` (dK/dV); fp32 on FMAs at fp32's accuracy, as the
-Pallas kernels keep fp32 inputs' products in fp32:
-``ops/csrc/flash_fwd_f32.cu``, ``flash_dq_f32.cu`` and ``flash_dkv_f32.cu``.
-Each is built as three instances, for tiles 64, 128 and 256 columns wide; a
-head_dim goes to the narrowest that holds it, whose columns past it are
-zeros (TMA's fill) or never read (fp32), and the instances' launches count
-apart (``kernel_name``: ``flash_fwd_d64`` up to 64, ``flash_fwd`` up to
-128, ``flash_fwd_d256`` above, with ``_f32`` after the kernel's name for
-fp32: ``flash_fwd_f32_d64``). Any other dtype or head_dim raises before a
+``ops/csrc/flash_dkv.cu`` (dK/dV); fp32 at fp32's accuracy, as the Pallas
+kernels keep fp32 inputs' products in fp32: ``ops/csrc/flash_fwd_f32.cu``
+and ``flash_dkv_f32.cu`` (at 64 and 128 columns) as three TF32 passes a
+product on the tensor cores (3xTF32, ``ops/csrc/tf32x3.cuh``;
+:func:`tf32_probe` checks on the card what they assume of it),
+``flash_dq_f32.cu`` and ``flash_dkv_f32.cu`` at 256 as FMAs on the CUDA
+cores. Each is built as three instances, for tiles 64, 128 and 256 columns
+wide; a head_dim goes to the narrowest that holds it, whose columns past it
+are zeros (TMA's fill) or never read (the FMA kernels), and the instances'
+launches count apart (``kernel_name``: ``flash_fwd_d64`` up to 64,
+``flash_fwd`` up to 128, ``flash_fwd_d256`` above, with ``_f32`` after the
+kernel's name for fp32: ``flash_fwd_f32_d64``). Any other dtype or head_dim raises before a
 launch: no fallback. A CPU tensor goes through the plain versions,
 which emulate the kernels' blockwise online-softmax recurrence with
 ``block_q``/``block_k`` blocks that step down to a divisor of the sequence
@@ -334,6 +337,44 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, causal=True):
     build.count(kernel_name("flash_dkv", d, q.dtype))
     return dk, dv
 
+
+
+def tf32_probe(device="cuda") -> dict:
+    """How the card's tensor core reads an fp32 operand of a ``.tf32``
+    wgmma, from one product each (``ops/csrc/tf32_probe.cu``): whether it
+    truncates the value to TF32 (``truncates``: what the fp32 kernels
+    assume, a raw fp32 tile then being its own hi; ``ops/csrc/tf32x3.cuh``),
+    rounds it to nearest (``rounds``) or reads it whole (``exact``), and
+    whether the register A fragment has the layout the kernels assume
+    (``fragment_layout``). ``values`` maps each crafted probe value to what
+    the tensor core read. Not a kernel of any path: no launch counter."""
+    import numpy as np
+
+    crafted = [1 + 2**-11 + 2**-13, -(1 + 2**-11 + 2**-13), 1 + 2**-11, 1 + 2**-10 + 2**-11,
+               1 - 2**-24, 3.0 + 2**-20]
+    rng = np.random.default_rng(19)
+    vals = np.concatenate([crafted, rng.standard_normal(64 - len(crafted))]).astype(np.float32)
+    bits = vals.view(np.int32)
+    low = np.int32(0x1FFF)
+    trunc = (bits & ~low).view(np.float32)
+    rna = ((bits + np.int32(0x1000)) & ~low).view(np.float32)  # half away from zero
+    lib = build.load()
+    v = torch.from_numpy(vals).to(device)
+    out = torch.zeros(1024, dtype=torch.float32, device=device)
+    build.check(lib, lib.tk_tf32_probe(v.data_ptr(), len(vals), out.data_ptr(),
+                                       build.stream_ptr(v.device)), "tf32 probe")
+    got = out.cpu().numpy()
+    read, rest = got[:512].reshape(64, 8)[:, 0], got[:512].reshape(64, 8)[:, 1:]
+    layout = got[512:].reshape(64, 8)
+    want = 8 * np.arange(64)[:, None] + np.arange(8)[None, :]
+    clean = not rest.any()
+    return {
+        "truncates": clean and bool((read == trunc).all()),
+        "rounds": clean and bool((read == rna).all()),
+        "exact": clean and bool((read == vals).all()),
+        "fragment_layout": bool((layout == want).all()),
+        "values": {float(x): float(y) for x, y in zip(vals[:len(crafted)], read)},
+    }
 
 # ------------------------------------------------------------ autograd
 def _on_cuda(t):
