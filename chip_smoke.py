@@ -8,10 +8,11 @@ Phases (any failure raises and the script exits non-zero):
   (b) build: nvcc builds every kernel of tf_operator_tpu_torch/ops/csrc
       into build/torch_kernels/ (timed; registers and spills printed);
       then one-wgmma probes of how the tensor core reads an fp32 operand
-      of a .tf32 product (ops/flash.py tf32_probe): the fp32 forward and
-      dK/dV kernels assume that it truncates the value to TF32 and that
-      the register A fragment has their layout (ops/csrc/tf32x3.cuh), and
-      the phase fails if either does not hold;
+      of a .tf32 product (ops/flash.py tf32_probe): the 3xTF32 kernels
+      (the fp32 forward, dQ and dK/dV) assume that it truncates the value
+      to TF32 (each lo they write) and that the register A fragment has
+      their layout (ops/csrc/tf32x3.cuh), and the phase fails if either
+      does not hold;
   (c) kernels against their plain versions, on the card in bf16: rope
       (forward and the inverse backward), the flash forward (o, lse), dQ
       and dK/dV (with and without a dlse cotangent), at the llama-400m
@@ -239,8 +240,10 @@ Phases (any failure raises and the script exits non-zero):
       (:func:`grads_against_fp32`);
   (w) fp32 through the four kernels and the head dims that are a multiple
       of 8 (:func:`phase_w`): phase c's checks in fp32 (rope_f32 and the
-      flash_*_f32 instances: the forward and dK/dV 3xTF32 on the tensor
-      cores, dK/dV at 256 and dQ FMAs, all at fp32's accuracy) in every
+      flash_*_f32 instances: the forward, and dQ and dK/dV up to 128
+      columns, 3xTF32 on the tensor cores with hi rounded to nearest, dQ
+      and dK/dV at 256 FMAs, all at fp32's accuracy; each entry's
+      "design" says which) in every
       case of CASES and CASES_D64 at head dims 16, 64, 128 and 256 against
       the fp32 plain versions on the card (TF32 off), at TOL_F32, and at
       head dims 64 and 128 in two large-logit cases (LARGE_LOGIT: q x 8,
@@ -2725,6 +2728,19 @@ def fp32_tiny_parity(build) -> None:
         gc.collect()
 
 
+def kernel_design(flash, kernel: str, d: int, dtype) -> str:
+    """What an entry's kernel runs on: rope's elementwise pass; the flash
+    kernels' bf16 wgmma, and in fp32 3xTF32 wgmma but for dQ and dK/dV at
+    the 256-wide instance, FMAs on the CUDA cores."""
+    if kernel == "rope":
+        return "elementwise"
+    if dtype != torch.float32:
+        return "wgmma bf16"
+    if kernel != "flash_fwd" and flash.kernel_width(d) == 256:
+        return "fma fp32"
+    return "wgmma 3xtf32"
+
+
 def phase_w(build, peak, flash, rope_mod) -> dict:
     """fp32 through the kernels (phase c's checks at TOL_F32 in CASES and
     CASES_D64 at HEAD_DIMS_W, each instance width timed at [8, 2048, 8, D]
@@ -2754,6 +2770,7 @@ def phase_w(build, peak, flash, rope_mod) -> dict:
                               else flash.kernel_name(kernel, d, dtype))
             res["name"] = f"{res['counter']}[d{d}]"
             res["head_dim"] = d
+            res["design"] = kernel_design(flash, kernel, d, dtype)
             results[res["name"]] = res
             run_of[res["name"]] = run_key
         gc.collect()

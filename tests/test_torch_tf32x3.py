@@ -1,22 +1,24 @@
-"""3xTF32, the arithmetic of the fp32 flash forward and dK/dV kernels on the
-tensor cores (tf_operator_tpu_torch/ops/csrc/tf32x3.cuh), emulated in plain
-torch on the CPU and held to the JAX package's Pallas kernels in interpret
-mode.
+"""3xTF32, the arithmetic of the fp32 flash kernels on the tensor cores (the
+forward, dQ and dK/dV; tf_operator_tpu_torch/ops/csrc/tf32x3.cuh), emulated
+in plain torch on the CPU and held to the JAX package's Pallas kernels in
+interpret mode.
 
 A .tf32 product reads 10 mantissa bits of each fp32 operand. The kernels
 split each operand x into hi and lo = x - hi and sum three passes, hi hi +
-hi lo + lo hi, in the fp32 accumulator. hi is x truncated to TF32 for a tile
-that TMA loads (the tensor core truncates: the raw tile is its own hi) and
-x rounded to nearest for a tile or register value the kernels split
-themselves; the tensor core then truncates lo. Here the split is done by
-bit masks on int32 views, and an attention forward and its dK/dV are built
-from those products tile by tile as the kernels build them (the online
-softmax over key tiles of 64, 32 or 16 keys; query tiles of 32 or 16 for
-dK/dV), then held to flash_attention_with_lse at tests/test_flash_pallas.py's
-fp32 tolerances (2e-5 forward, 3e-5 gradients): causal GQA 2:1 at head dims
-24 and 128, plain and with logits x 8 (a peaky softmax). The same built from
+hi lo + lo hi, in the fp32 accumulator. hi is x rounded to nearest TF32,
+for a tile that TMA loads (split in place: hi over x, lo beside it) as for
+a register value or a transposed tile; the tensor core then truncates lo.
+Here the split is done by bit masks on int32 views, and an attention
+forward, its dQ and its dK/dV are built from those products tile by tile
+as the kernels build them (the online softmax over key tiles of 64, 32 or
+16 keys; key tiles of 64 or 32 for dQ; query tiles of 32 or 16 for dK/dV),
+then held to flash_attention_with_lse at tests/test_flash_pallas.py's fp32
+tolerances (2e-5 forward, 3e-5 gradients): causal GQA 2:1 at head dims 24
+and 128, plain and with logits x 8 (a peaky softmax). The same built from
 one TF32 pass fails those tolerances: that is why the kernels take three.
-Inputs come from a numpy seed.
+Against fp64, the products of two tiles that TMA loads err at least twice
+as far with a hi truncated to TF32 (the tensor core's own reading of a raw
+tile) as with the rounded one. Inputs come from a numpy seed.
 """
 
 import functools
@@ -68,21 +70,22 @@ def one_product(a, b, hi_a, hi_b):
 
 
 def tiles(d):
-    """(keys of a forward tile, queries of a dK/dV tile) of the instance
-    that serves head dim d (flash_fwd_f32.cu, flash_dkv_f32.cu)."""
-    return (64, 32) if d <= 64 else (32, 16)
+    """(keys of a forward tile, keys of a dQ tile, queries of a dK/dV tile)
+    of the instance that serves head dim d (flash_fwd_f32.cu,
+    flash_dq_f32.cu, flash_dkv_f32.cu)."""
+    return (64, 64, 32) if d <= 64 else (32, 32, 16)
 
 
-def emulate_forward(q, k, v, mm):
+def emulate_forward(q, k, v, mm, hi=tf32_round):
     """The forward kernel's arithmetic, causal: per block of 64 query rows,
-    S = Q K^T over key tiles (both raw tiles: truncated hi), the online
-    softmax in exp2, O += P V (P split in registers, V^T by the producer:
-    rounded hi). q [b, kvh, g, s, d], k and v [b, kvh, 1, s, d]; returns o
-    like q and lse [b, kvh, g, s]."""
+    S = Q K^T over key tiles (both natural tiles, split in place: ``hi``),
+    the online softmax in exp2, O += P V (P split in registers, V^T by the
+    producer from the raw V: rounded hi). q [b, kvh, g, s, d], k and v [b,
+    kvh, 1, s, d]; returns o like q and lse [b, kvh, g, s]."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     c = scale * LOG2E
-    kn, _ = tiles(d)
+    kn, _, _ = tiles(d)
     os, lses = [], []
     for q0 in range(0, SEQ, 64):
         qb = q[..., q0:q0 + 64, :]
@@ -91,7 +94,7 @@ def emulate_forward(q, k, v, mm):
         l = torch.zeros(qb.shape[:-1])
         acc = torch.zeros(qb.shape)
         for k0 in range(0, q0 + 64, kn):
-            s = mm(qb, k[..., k0:k0 + kn, :].transpose(-1, -2), tf32_trunc, tf32_trunc)
+            s = mm(qb, k[..., k0:k0 + kn, :].transpose(-1, -2), hi, hi)
             cols = k0 + torch.arange(kn)[None, :]
             s = s.masked_fill(cols > rows, -math.inf)
             mx = torch.maximum(m, s.amax(-1))
@@ -106,17 +109,45 @@ def emulate_forward(q, k, v, mm):
     return torch.cat(os, -2), torch.cat(lses, -1)
 
 
-def emulate_dkv(q, k, v, do, lse, delta, mm):
-    """The dK/dV kernel's arithmetic, causal: per block of 64 keys, over the
-    group's query heads and the query tiles from the diagonal on, S^T = K
-    Q^T and dP^T = V dO^T (raw tiles: truncated hi), P^T and dS^T in
-    registers, dV += P^T dO and dK += dS^T Q (rounded hi: registers and the
-    producer's Q^T and dO^T). Shapes as emulate_forward's, lse and delta
-    [b, kvh, g, s]; returns dk and dv [b, kvh, s, d]."""
+def emulate_dq(q, k, v, do, lse, delta, mm, hi=tf32_round):
+    """The dQ kernel's arithmetic, causal: per block of 64 query rows, over
+    the key tiles up to the block's last row, S = Q K^T and dP = dO V^T
+    (natural tiles, split in place: ``hi``), P and dS in registers, dQ +=
+    dS K (dS split in registers: rounded hi; K^T from K's split: ``hi``).
+    Shapes as emulate_dkv's; returns dq like q."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     c = scale * LOG2E
-    _, qn = tiles(d)
+    _, kn, _ = tiles(d)
+    dqs = []
+    for q0 in range(0, SEQ, 64):
+        qb, dob = q[..., q0:q0 + 64, :], do[..., q0:q0 + 64, :]
+        lb, dlb = lse[..., q0:q0 + 64, None], delta[..., q0:q0 + 64, None]
+        rows = q0 + torch.arange(64)[:, None]
+        dq = torch.zeros(qb.shape)
+        for k0 in range(0, q0 + 64, kn):
+            kt, vt = k[..., k0:k0 + kn, :], v[..., k0:k0 + kn, :]
+            s = mm(qb, kt.transpose(-1, -2), hi, hi)
+            p = torch.exp2(s * c - lb * LOG2E)
+            p = p.masked_fill(k0 + torch.arange(kn)[None, :] > rows, 0.0)
+            dp = mm(dob, vt.transpose(-1, -2), hi, hi)
+            dq = dq + mm(p * (dp - dlb), kt, tf32_round, hi)
+        dqs.append(dq * scale)
+    return torch.cat(dqs, -2)
+
+
+def emulate_dkv(q, k, v, do, lse, delta, mm, hi=tf32_round):
+    """The dK/dV kernel's arithmetic, causal: per block of 64 keys, over the
+    group's query heads and the query tiles from the diagonal on, S^T = K
+    Q^T and dP^T = V dO^T (natural tiles, split in place: ``hi``), P^T and
+    dS^T in registers, dV += P^T dO and dK += dS^T Q (P^T and dS^T split in
+    registers: rounded hi; Q^T and dO^T from Q's and dO's splits: ``hi``).
+    Shapes as emulate_forward's, lse and delta [b, kvh, g, s]; returns dk
+    and dv [b, kvh, s, d]."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    c = scale * LOG2E
+    _, _, qn = tiles(d)
     dks, dvs = [], []
     for k0 in range(0, SEQ, 64):
         kb, vb = k[:, :, 0, k0:k0 + 64], v[:, :, 0, k0:k0 + 64]
@@ -127,60 +158,68 @@ def emulate_dkv(q, k, v, do, lse, delta, mm):
             for q0 in range(k0, SEQ, qn):
                 qt, dot = q[:, :, g, q0:q0 + qn], do[:, :, g, q0:q0 + qn]
                 lt, dlt = lse[:, :, g, q0:q0 + qn], delta[:, :, g, q0:q0 + qn]
-                st = mm(kb, qt.transpose(-1, -2), tf32_trunc, tf32_trunc)
+                st = mm(kb, qt.transpose(-1, -2), hi, hi)
                 p = torch.exp2(st * c - (lt * LOG2E)[..., None, :])
                 p = p.masked_fill(q0 + torch.arange(qn)[None, :] < keys, 0.0)
-                dpt = mm(vb, dot.transpose(-1, -2), tf32_trunc, tf32_trunc)
+                dpt = mm(vb, dot.transpose(-1, -2), hi, hi)
                 ds = p * (dpt - dlt[..., None, :])
-                dv = dv + mm(p, dot, tf32_round, tf32_round)
-                dk = dk + mm(ds, qt, tf32_round, tf32_round)
+                dv = dv + mm(p, dot, tf32_round, hi)
+                dk = dk + mm(ds, qt, tf32_round, hi)
         dks.append(dk * scale)
         dvs.append(dv)
     return torch.cat(dks, -2), torch.cat(dvs, -2)
 
 
-def inputs(d, logit):
-    """q, k, v, dO and dlse, the logits scaled by ``logit`` through k: q x
-    ``logit`` gives the same softmax but scales dK by it too, past what the
-    elementwise 3e-5 holds at |dK| near 20 even for exact products (fp64
-    products rounded to fp32 reach 1.4x that tolerance at head dim 128)."""
+def inputs(d, logit, through="k"):
+    """q, k, v, dO and dlse, the logits scaled by ``logit`` through k or q.
+    Either gives the same softmax, but scales dQ (through k) or dK (through
+    q) by it too, past what the elementwise 3e-5 holds at |dQ| or |dK| near
+    20 even for exact products (fp64 products rounded to fp32 reach 1.1x and
+    1.4x that tolerance at head dim 128): dQ is held on the inputs scaled
+    through q, the other outputs on those scaled through k (:func:`held`)."""
     rng = np.random.default_rng(1900 + d)
     q = rng.standard_normal((1, SEQ, HEADS, d)).astype(np.float32)
-    k = rng.standard_normal((1, SEQ, KV_HEADS, d)).astype(np.float32) * np.float32(logit)
+    k = rng.standard_normal((1, SEQ, KV_HEADS, d)).astype(np.float32)
     v = rng.standard_normal((1, SEQ, KV_HEADS, d)).astype(np.float32)
     do = rng.standard_normal((1, SEQ, HEADS, d)).astype(np.float32)
     dlse = rng.standard_normal((1, HEADS, SEQ)).astype(np.float32)
+    if through == "q":
+        q = q * np.float32(logit)
+    else:
+        k = k * np.float32(logit)
     return q, k, v, do, dlse
 
 
 @functools.cache
 def reference():
     """flash_attention_with_lse in interpret mode, causal, blocks of 64:
-    (o, lse, dk, dv) under the cotangents (do, dlse), jitted."""
+    (o, lse, dq, dk, dv) under the cotangents (do, dlse), jitted."""
     def run(q, k, v, do, dlse):
         (o, lse), vjp = jax.vjp(
             lambda q, k, v: jax_flash_with_lse(q, k, v, causal=True, block_q=64, block_k=64,
                                                interpret=True), q, k, v)
-        _, dk, dv = vjp((do, dlse))
-        return o, lse, dk, dv
+        dq, dk, dv = vjp((do, dlse))
+        return o, lse, dq, dk, dv
 
     return jax.jit(run)
 
 
 @functools.cache
-def expected(d, logit):
-    args = [jnp.asarray(a) for a in inputs(d, logit)]
+def expected(d, logit, through="k"):
+    args = [jnp.asarray(a) for a in inputs(d, logit, through)]
     fn = reference()
     # XLA's backend optimisations cost compile time and buy nothing here.
     out = fn.lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
     return tuple(np.asarray(x) for x in out)
 
 
-def emulate(d, logit, mm):
-    """(o, lse, dk, dv) in the JAX package's layouts, from the kernels'
-    arithmetic with products ``mm``; delta = rowsum(dO o) - dlse, as
-    ops/flash.py flash_delta computes it, from the emulated o."""
-    q, k, v, do, dlse = (torch.from_numpy(a) for a in inputs(d, logit))
+@functools.cache
+def emulate(d, logit, mm, hi=tf32_round, through="k"):
+    """(o, lse, dq, dk, dv) in the JAX package's layouts, from the kernels'
+    arithmetic with products ``mm`` and natural tiles split to ``hi``;
+    delta = rowsum(dO o) - dlse, as ops/flash.py flash_delta computes it,
+    from the emulated o."""
+    q, k, v, do, dlse = (torch.from_numpy(a) for a in inputs(d, logit, through))
     g = HEADS // KV_HEADS
 
     def grouped(x):  # [b, s, h, d] -> [b, kvh, g, s, d]
@@ -188,19 +227,36 @@ def emulate(d, logit, mm):
 
     qg, dog = grouped(q), grouped(do)
     kg, vg = grouped(k), grouped(v)
-    o, lse = emulate_forward(qg, kg, vg, mm)
+    o, lse = emulate_forward(qg, kg, vg, mm, hi)
     delta = (dog * o).sum(-1) - dlse.reshape(1, KV_HEADS, g, SEQ)
-    dk, dv = emulate_dkv(qg, kg, vg, dog, lse, delta, mm)
+    dq = emulate_dq(qg, kg, vg, dog, lse, delta, mm, hi)
+    dk, dv = emulate_dkv(qg, kg, vg, dog, lse, delta, mm, hi)
     return (o.reshape(1, HEADS, SEQ, d).permute(0, 2, 1, 3).numpy(),
             lse.reshape(1, HEADS, SEQ).numpy(),
+            dq.reshape(1, HEADS, SEQ, d).permute(0, 2, 1, 3).numpy(),
             dk.permute(0, 2, 1, 3).numpy(), dv.permute(0, 2, 1, 3).numpy())
+
+
+NAMES = ("o", "lse", "dq", "dk", "dv")
+TOLS = (TOL_O, TOL_O, TOL_G, TOL_G, TOL_G)
+
+
+def held(d, logit, mm):
+    """(emulated, Pallas) outputs (o, lse, dq, dk, dv) with products
+    ``mm``: dq from the inputs with the logits scaled through q, the others
+    through k (:func:`inputs`)."""
+    got, want = list(emulate(d, logit, mm)), list(expected(d, logit))
+    if logit != 1:
+        got[2] = emulate(d, logit, mm, through="q")[2]
+        want[2] = expected(d, logit, "q")[2]
+    return got, want
 
 
 def worst(got, want):
     """Per output, the largest |got - want| over atol + rtol |want| at the
     tolerance assert_allclose would apply: above 1 fails."""
     return [float(np.max(np.abs(g - w) / (t + t * np.abs(w))))
-            for g, w, t in zip(got, want, (TOL_O, TOL_O, TOL_G, TOL_G))]
+            for g, w, t in zip(got, want, TOLS)]
 
 
 @pytest.mark.parametrize("hi_of,bound", [(tf32_round, 2.0**-21), (tf32_trunc, 2.0**-20)],
@@ -228,24 +284,62 @@ def test_split_reconstructs(hi_of, bound):
 @pytest.mark.parametrize("logit", [1.0, 8.0], ids=["x1", "x8"])
 @pytest.mark.parametrize("d", [24, 128])
 def test_three_products_match_pallas(d, logit):
-    """o, lse, dK and dV built from 3xTF32 products within the Pallas
+    """o, lse, dQ, dK and dV built from 3xTF32 products within the Pallas
     tests' fp32 tolerances of the Pallas kernels in interpret mode."""
-    got, want = emulate(d, logit, three_products), expected(d, logit)
-    for g, w, tol, name in zip(got, want, (TOL_O, TOL_O, TOL_G, TOL_G),
-                               ("o", "lse", "dk", "dv")):
+    got, want = held(d, logit, three_products)
+    for g, w, tol, name in zip(got, want, TOLS, NAMES):
         np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=name)
 
 
 @pytest.mark.parametrize("logit", [1.0, 8.0], ids=["x1", "x8"])
 @pytest.mark.parametrize("d", [24, 128])
 def test_one_tf32_pass_fails_pallas_tolerance(d, logit):
-    """The same from one TF32 pass a product: o, dK and dV leave the
+    """The same from one TF32 pass a product: o, dQ, dK and dV leave the
     tolerances the three passes keep (by more than 3x for o and dV), which
     pins why the kernels take three."""
-    got, want = emulate(d, logit, one_product), expected(d, logit)
-    ratios = worst(got, want)
-    assert ratios[0] > 3 and ratios[3] > 3 and ratios[2] > 1, ratios
-    assert max(worst(emulate(d, logit, three_products), want)) <= 1
+    ratios = dict(zip(NAMES, worst(*held(d, logit, one_product))))
+    assert ratios["o"] > 3 and ratios["dv"] > 3, ratios
+    assert ratios["dk"] > 1 and ratios["dq"] > 1, ratios
+    assert max(worst(*held(d, logit, three_products))) <= 1
+
+
+def split_errors(d, hi_of):
+    """The three passes' own error in every product of the emulation with
+    logits x 8, natural tiles split to ``hi_of``: the passes taken and
+    summed exactly (fp64) against the fp64 product of the same operands, as
+    max |error| over max |product|. Returns the largest over the products
+    of two natural tiles (S and dP, S^T and dP^T) and over all."""
+    def natural(x):  # a function of its own: a product tells natural tiles apart
+        return hi_of(x)
+
+    both = every = 0.0
+
+    def mm(a, b, hi_a, hi_b):
+        nonlocal both, every
+        (ah, al), (bh, bl) = parts(a, hi_a), parts(b, hi_b)
+        exact = a.double() @ b.double()
+        passes = al.double() @ bh.double() + ah.double() @ bl.double() + ah.double() @ bh.double()
+        err = ((passes - exact).abs().max() / exact.abs().max()).item()
+        every = max(every, err)
+        if hi_a is natural and hi_b is natural:
+            both = max(both, err)
+        return exact.float()
+
+    emulate.__wrapped__(d, 8.0, mm, natural)
+    return both, every
+
+
+@pytest.mark.parametrize("d", [24, 128])
+def test_rounded_hi_cuts_the_products_error(d):
+    """With the natural tiles' hi rounded in place, the products of two
+    natural tiles err at least 2x less against fp64 than with it truncated
+    (the tensor core's reading of a raw tile): |lo| halves, and with it lo
+    lo and the core's truncation of lo. A product with one operand split in
+    registers gains less (its rounded side is the same in both), so over
+    all products the largest error is only held no larger."""
+    rounded, truncated = split_errors(d, tf32_round), split_errors(d, tf32_trunc)
+    assert 2 * rounded[0] <= truncated[0], (rounded, truncated)
+    assert rounded[1] <= truncated[1], (rounded, truncated)
 
 
 def test_fragment_order_keeps_the_product():

@@ -20,14 +20,15 @@
 // for barriers and TMA): 3xTF32 on wgmma. One block per (64 keys, KV head,
 // batch), the key tiles with the most causal rows first, of two
 // warpgroups:
-// - the producer (warpgroup 1) loads K and V once by TMA and writes K lo and
-//   V lo beside them (the raw tiles are their own hi: the tensor core
-//   truncates). Its warp 0 then streams, for every query head of the group
-//   and every tile of kN queries from the diagonal on, Q and dO by TMA and
-//   the tile's lse and delta by cp.async into a ring of A slots, a tile
-//   ahead; for each tile the producer writes Q lo and dO lo beside them
-//   (then signals ready_a), and Q^T and dO^T hi and lo into a ring of T
-//   slots (then ready_t): a .tf32 operand is K-major only, and dK += dS^T Q
+// - the producer (warpgroup 1) loads K and V once by TMA and splits them in
+//   place (hi rounded over the raw tile, lo beside it). Its warp 0 then
+//   streams, for every query head of the group and every tile of kN
+//   queries from the diagonal on, Q and dO by TMA and the tile's lse and
+//   delta by cp.async into a ring of A slots, a tile ahead; for each tile
+//   the producer splits Q and dO in place (then signals ready_a) and, once
+//   all of its threads have, writes Q^T and dO^T hi and lo, from those hi
+//   and lo, into a ring of T slots (then ready_t): a .tf32 operand is
+//   K-major only, and dK += dS^T Q
 //   and dV += P^T dO take Q and dO with the queries as K, in the order that
 //   makes the consumer's accumulators the A fragments as they stand
 //   (tf32x3.cuh). The GQA sum stays inside the block: no atomics, no second
@@ -44,12 +45,13 @@
 // - Causal: query tiles before the block's first key are never loaded, and
 //   only tiles that cross the diagonal (or the ragged end of the queries)
 //   are masked.
-// - Epilogue: dK * scale and dV staged in the raw K and V tiles and written
+// - Epilogue: dK * scale and dV staged in the K and V (hi) tiles and written
 //   by TMA store (rows past the end and columns past the head dim are not
 //   written).
-// Shared memory (KB = 1024 bytes): K, K lo, V, V lo of 64 keys; an A slot
-// holds Q, dO, Q lo and dO lo, a T slot Q^T and dO^T hi and lo (two columns
-// a query), each of kN queries, beside the slots' lse and delta:
+// Shared memory (KB = 1024 bytes): K, K lo, V, V lo of 64 keys (K and V
+// hi after the split); an A slot holds Q, dO, Q lo and dO lo, a T slot Q^T
+// and dO^T hi and lo (two columns a query), each of kN queries, beside the
+// slots' lse and delta:
 //   kD 64:  kN 32, 64 + 2 A slots x 32 + 2 T slots x 32 = 192 KB;
 //   kD 128: kN 16, 128 + 2 x 32 + 1 x 32 = 224 KB (the next tile's
 //           transposes wait until this one's dV and dK products are done).
@@ -198,9 +200,9 @@ constexpr int kMaxSlots = 2;
 
 struct Barriers {
   uint64_t kv_full;               // K and V have landed
-  uint64_t kv_ready;              // K lo and V lo are written
+  uint64_t kv_ready;              // K and V are split: hi in place, lo beside
   uint64_t full[kMaxSlots];       // Q, dO, lse and delta of the A slot are in
-  uint64_t ready_a[kMaxSlots];    // Q lo and dO lo are written
+  uint64_t ready_a[kMaxSlots];    // Q and dO are split: hi in place, lo beside
   uint64_t empty_a[kMaxSlots];    // the consumer is done with the A slot
   uint64_t ready_t[kMaxSlots];    // Q^T and dO^T hi and lo are written
   uint64_t empty_t[kMaxSlots];    // the consumer is done with them
@@ -318,13 +320,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_f32_kernel(
       unsigned char* a = smem + L::kOffA + s * L::kSlotA;
       unsigned char* tt = smem + L::kOffT + t * L::kSlotT;
       mbar_wait(&bar.full[s], (it / kSA) & 1);
-      split_natural<L::kTile>(a, a + 2 * L::kTile, tid);              // Q lo
-      split_natural<L::kTile>(a + L::kTile, a + 3 * L::kTile, tid);   // dO lo
+      split_natural<L::kTile>(a, a + 2 * L::kTile, tid);              // Q
+      split_natural<L::kTile>(a + L::kTile, a + 3 * L::kTile, tid);   // dO
       fence_proxy_async();
       mbar_arrive(&bar.ready_a[s]);
+      // The transposes read what other threads split.
+      named_barrier_sync<128>(1);
       if (it >= kST) mbar_wait(&bar.empty_t[t], (it / kST - 1) & 1);
-      transpose_split<kN, kD>(a, tt, tid);                            // Q^T
-      transpose_split<kN, kD>(a + L::kTile, tt + 2 * L::kTile, tid);  // dO^T
+      transpose_split<kN, kD, true>(a, tt, tid, a + 2 * L::kTile);     // Q^T
+      transpose_split<kN, kD, true>(a + L::kTile, tt + 2 * L::kTile, tid,
+                                    a + 3 * L::kTile);                 // dO^T
       fence_proxy_async();
       mbar_arrive(&bar.ready_t[t]);
       // Every producer thread is done reading Q and dO of tile it before a
@@ -422,7 +427,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_f32_kernel(
     mbar_arrive(&bar.empty_t[t]);
   }
 
-  // Epilogue: dK * scale and dV into the raw K and V tiles (read by no one
+  // Epilogue: dK * scale and dV into the K and V (hi) tiles (read by no one
   // any more), in the swizzled layout the TMA store reads.
 #pragma unroll
   for (int i = 0; i < kAcc; i += 2) {

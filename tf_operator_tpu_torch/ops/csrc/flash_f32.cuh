@@ -1,13 +1,13 @@
 // Building blocks of the fp32 flash kernels that run on the CUDA cores:
-// flash_dq_f32.cu at every width and flash_dkv_f32.cu at width 256 (the
-// forward, and dK/dV at 64 and 128, run 3xTF32 on the tensor cores:
-// tf32x3.cuh). Products of fp32 tiles in shared memory by FMAs, every sum
-// in fp32.
+// flash_dq_f32.cu and flash_dkv_f32.cu at width 256 (the forward, and dQ
+// and dK/dV at 64 and 128, run 3xTF32 on the tensor cores: tf32x3.cuh).
+// Products of fp32 tiles in shared memory by FMAs, every sum in fp32.
 //
-// Why these stay on FMAs: dQ += dS K needs K transposed for a .tf32
-// wgmma (K-major operands only), a redesign of its own (ROADMAP.md, Queue
-// 2); dK/dV at 256 cannot hold K, V and their lo parts for the 64 keys a
-// warpgroup's wgmma needs in a block's shared memory (flash_dkv_f32.cu).
+// Why these stay on FMAs: at 256 a block's shared memory cannot hold the
+// hi and lo parts of the 64 rows a warpgroup's wgmma needs (Q and dO for
+// dQ, K and V for dK/dV: 256 KB against 227) beside any tile they meet;
+// streaming the head dim in chunks is a redesign of its own (ROADMAP.md,
+// Queue 2).
 //
 // Layout. Every tile is row-major, [rows][kD + 4] floats: the 4 floats of
 // padding keep each row 16-byte aligned and put consecutive rows 4 banks
@@ -26,10 +26,10 @@
 //   (dQ += dS K, dV += P^T dO, dK += dS^T Q): thread (ty, tx)
 //   owns rows 4ty .. 4ty + 3 and the float4 column chunks 4tx + 64jj; a
 //   chunk at or past the true head dim is skipped.
-// Head dims. An instance kD (64, 128 or 256) serves every head dim D that
-// is a multiple of 8 with kD / 2 < D <= kD (8 <= D <= 64 for the 64
-// instance): the loads read D columns of a row, the products run over D,
-// and the columns past D are neither read nor written.
+// Head dims. The kD 256 instances serve every head dim D that is a
+// multiple of 8 from 136 to 256: the loads read D columns of a row, the
+// products run over D, and the columns past D are neither read nor
+// written.
 #pragma once
 
 #include "common.cuh"

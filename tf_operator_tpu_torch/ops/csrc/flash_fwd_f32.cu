@@ -22,11 +22,11 @@
 // a k8 step past it multiplies zeros. One block per (64 Q rows, q head,
 // batch), the longest causal blocks first; its last warpgroup produces and
 // the others (two at kD 64 and 128, one at 256) consume:
-// - the producer loads Q once by TMA and splits it (Q lo beside the raw Q,
-//   which is its own hi: the tensor core truncates), then streams the K
-//   and V tiles by TMA into a ring of A slots, a tile ahead, and for each
-//   tile writes K lo beside the raw K (then signals ready_a) and V^T hi and
-//   lo into a ring of T slots (then ready_t): V must be transposed because
+// - the producer loads Q once by TMA and splits it in place (hi rounded
+//   over Q, Q lo beside it), then streams the K and V tiles by TMA into a
+//   ring of A slots, a tile ahead, and for each tile splits K in place
+//   (then signals ready_a) and writes V^T hi and lo, split from the raw V,
+//   into a ring of T slots (then ready_t): V must be transposed because
 //   a .tf32 operand is K-major only, and its keys go in the order that
 //   makes a consumer's P accumulator the A fragment as it stands
 //   (tf32x3.cuh);
@@ -44,12 +44,12 @@
 // runs on the CUDA cores.
 // - Causal: K tiles past the block's last row are never loaded, only tiles
 //   that cross the diagonal (or the ragged end of the keys) are masked.
-// - Epilogue: o = acc / l in registers, staged in the raw Q tile and written
+// - Epilogue: o = acc / l in registers, staged in the Q (hi) tile and written
 //   by TMA store (rows past the end and columns past the head dim are not
 //   written); lse from registers.
-// Shared memory (KB = 1024 bytes): Q and Q lo 2 x 64 rows; an A slot holds
-// K, K lo and V, a T slot V^T hi and lo (two columns a key), each of kN
-// keys:
+// Shared memory (KB = 1024 bytes): Q (hi) and Q lo 2 x 64 rows; an A slot
+// holds K (hi), K lo and V, a T slot V^T hi and lo (two columns a key),
+// each of kN keys:
 //   kD 64:  kN 64, Q 32 + 2 A slots x 48 + 2 T slots x 32 = 192 KB;
 //   kD 128: kN 32, Q 64 + 2 x 48 + 2 x 32 = 224 KB;
 //   kD 256: kN 16, Q 128 + 1 x 48 + 1 x 32 = 208 KB (one slot each, one
@@ -72,9 +72,9 @@ constexpr int kMaxSlots = 2;
 
 struct Barriers {
   uint64_t q_full;                // Q has landed
-  uint64_t q_ready;               // Q lo is written
+  uint64_t q_ready;               // Q is split: hi in place, lo beside
   uint64_t full[kMaxSlots];       // K and V of the A slot have landed
-  uint64_t ready_a[kMaxSlots];    // K lo is written
+  uint64_t ready_a[kMaxSlots];    // K is split: hi in place, lo beside
   uint64_t empty_a[kMaxSlots];    // the consumer is done with K and K lo
   uint64_t ready_t[kMaxSlots];    // V^T hi and lo are written
   uint64_t empty_t[kMaxSlots];    // the consumer is done with them
@@ -89,9 +89,9 @@ struct Smem {
   static constexpr int kThreads = 128 * (kConsumers + 1);
   static constexpr int kSlotsA = kD > 128 ? 1 : 2;
   static constexpr int kSlotsT = kD > 128 ? 1 : 2;
-  static constexpr int kQ = kRows * kD * 4;       // Q (or Q lo)
-  static constexpr int kTile = kN * kD * 4;       // K, K lo or V of a tile
-  static constexpr int kSlotA = 3 * kTile;        // K, K lo, V
+  static constexpr int kQ = kRows * kD * 4;       // Q (hi) or Q lo
+  static constexpr int kTile = kN * kD * 4;       // K (hi), K lo or V of a tile
+  static constexpr int kSlotA = 3 * kTile;        // K (hi), K lo, V
   static constexpr int kSlotT = 2 * kTile;        // V^T hi and lo
   static constexpr int kOffQ = 0;
   static constexpr int kOffQlo = kQ;
@@ -333,7 +333,7 @@ __global__ void __launch_bounds__(Smem<kD>::kThreads, 1) flash_fwd_f32_kernel(
     }
   }
 
-  // Epilogue: o = acc / l into the raw Q tile (read by no one any more), in
+  // Epilogue: o = acc / l into the Q (hi) tile (read by no one any more), in
   // the swizzled layout the TMA store reads.
   const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0);
   const float inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu, and through tf32x3.cuh flash_fwd_f32.cu and
-// flash_dkv_f32.cu), as inline PTX:
+// flash_dq.cu, flash_dkv.cu, and through tf32x3.cuh flash_fwd_f32.cu,
+// flash_dq_f32.cu and flash_dkv_f32.cu), as inline PTX:
 //
 // - mbarriers: init, arrive, arrive/expect-tx, try-wait on a phase parity;
 // - TMA: a 4-D tiled load into shared memory that completes on an mbarrier,

@@ -1,23 +1,26 @@
 // 3xTF32 building blocks of the fp32 flash kernels on the tensor cores
-// (flash_fwd_f32.cu, and flash_dkv_f32.cu at widths 64 and 128), beside
-// hopper.cuh's barriers, TMA and descriptors.
+// (flash_fwd_f32.cu, and flash_dq_f32.cu and flash_dkv_f32.cu at widths 64
+// and 128), beside hopper.cuh's barriers, TMA and descriptors.
 //
 // 3xTF32. A .tf32 wgmma reads 10 mantissa bits of each operand, about 1e-3
 // relative: one pass is far from the fp32 products the Pallas kernels give
 // on fp32 inputs. Each fp32 operand x is split into hi and lo = x - hi, and a
 // product A B is the sum of three passes in the fp32 accumulator,
 // hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B), which keeps all but lo(A) lo(B)
-// (about 2^-22 relative) and the bits lo itself loses (the same order):
-// the error of a plain fp32 product (tests/test_torch_tf32x3.py emulates
-// both on the CPU). A split in registers rounds hi to nearest
-// (cvt.rna.tf32.f32); lo is then exact in fp32.
+// and the bits lo itself loses (tests/test_torch_tf32x3.py emulates it on
+// the CPU). Every split rounds hi to nearest (ties away from zero, as
+// cvt.rna.tf32.f32), so |lo| <= 2^-11 |x| and lo is exact in fp32.
 //
 // Truncation. The tensor core drops the 13 low mantissa bits of an fp32
 // operand rather than rounding them (tk_tf32_probe, tf32_probe.cu, settles
-// it on the card, and chip_smoke.py fails if it does not hold). So a raw
-// fp32 tile, as TMA writes it, already is its own hi, and the split of a
-// natural tile only writes lo = x - trunc(x) beside it: one pass that reads
-// x once and writes lo, and none that writes hi.
+// it on the card, and chip_smoke.py fails if it does not hold). A raw fp32
+// tile as TMA writes it would be its own hi, but a truncated one: |lo| up
+// to 2^-10 |x|. So the split of a natural tile (split_natural) writes the
+// rounded hi over x in place and lo beside it, which halves |lo| and cuts
+// what the three passes drop, lo lo and the core's truncation of lo, about
+// 4x. A tile that is split in place and also transposed (K in dQ, Q and dO
+// in dK/dV) is transposed from its hi and lo, never from hi alone
+// (transpose_split<..., true>), after every thread's split is done.
 //
 // Layout. A .tf32 operand in shared memory must be K-major: PTX gives the
 // transpose bit of a wgmma descriptor to 16-bit types only. Every tile lives
@@ -31,10 +34,11 @@
 // - Natural tiles (Q, K, V, dO as TMA loads them: rows are keys or queries,
 //   K is the head dim) serve S = Q K^T and dP = dO V^T (and their
 //   transposes) as they stand.
-// - Transposed tiles (V^T in the forward, Q^T and dO^T in dK/dV: rows are the
-//   head dim, K is keys or queries) are written by transpose_split from a
-//   natural tile: a tile of kN keys takes 2 kN columns, hi in columns 0 ..
-//   kN - 1 and lo in kN .. 2 kN - 1, in panels of kD rows.
+// - Transposed tiles (V^T in the forward, K^T in dQ, Q^T and dO^T in dK/dV:
+//   rows are the head dim, K is keys or queries) are written by
+//   transpose_split from a natural tile: a tile of kN keys takes 2 kN
+//   columns, hi in columns 0 .. kN - 1 and lo in kN .. 2 kN - 1, in panels
+//   of kD rows.
 // - Register A fragments. The m64nN f32 accumulator holds columns {2t, 2t +
 //   1} of each 8-column group in thread t of a quad (hopper.cuh), the tf32 A
 //   fragment of a k8 step wants columns {t, t + 4} (a0 row g column t, a1 row
@@ -55,10 +59,6 @@ __device__ __forceinline__ uint32_t tf32_round(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ float tf32_trunc(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
 }
 
 // Split a register value: hi rounded to TF32, lo = x - hi (exact).
@@ -90,36 +90,44 @@ __device__ __forceinline__ uint32_t tstep(int col0) {
   return static_cast<uint32_t>((col0 / 32) * kD * 128 + ((col0 % 32) / 8) * 32);
 }
 
-// The split of a natural tile by the 128 threads of a warpgroup (tid 0 ..
-// 127): lo = x - trunc(x) of each fp32 value of x (kBytes bytes) into `lo`
-// at the same offset; x, as the tensor core reads it, is its own hi.
+// x rounded to TF32: to nearest, ties away from zero (cvt.rna.tf32.f32), as
+// an fp32 value whose 13 low mantissa bits are zero.
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// The split of a natural tile in place by the 128 threads of a warpgroup
+// (tid 0 .. 127): each fp32 value x of the tile at x (kBytes bytes) becomes
+// hi = tf32_hi(x), and lo = x - hi goes into `lo` at the same offset.
 template <int kBytes>
-__device__ __forceinline__ void split_natural(const unsigned char* x, unsigned char* lo,
-                                              int tid) {
-  const float4* xs = reinterpret_cast<const float4*>(x);
+__device__ __forceinline__ void split_natural(unsigned char* x, unsigned char* lo, int tid) {
+  float4* xs = reinterpret_cast<float4*>(x);
   float4* los = reinterpret_cast<float4*>(lo);
 #pragma unroll 4
   for (int i = tid; i < kBytes / 16; i += 128) {
     const float4 v = xs[i];
-    los[i] = make_float4(v.x - tf32_trunc(v.x), v.y - tf32_trunc(v.y), v.z - tf32_trunc(v.z),
-                         v.w - tf32_trunc(v.w));
+    const float4 h = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z), tf32_hi(v.w));
+    xs[i] = h;
+    los[i] = make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
   }
 }
 
 // The transposed split of a natural tile src [kN rows][kD] (keys or
 // queries by head dim) by the 128 threads of a warpgroup: hi of (r, d) to
-// (d, tcol(r)) and lo to (d, kN + tcol(r)) of dst, kD rows. Thread `tid`
-// takes row r = tid % kN and the float4s (r, 4
-// c4) for c4 = tid / kN + kStep it: a quarter warp reads eight rows (eight
-// distinct chunks after the swizzle) and a warp writes whole rows of dst
-// (32 consecutive columns, or two half rows four rows apart at kN 16), free
-// of bank conflicts. kStep (128 / kN) is even, so c4 % 2, and with it the
-// swizzle of the rows d = 4 c4 + i a thread writes, stays the same from one
-// step to the next: the stores are the first step's addresses plus 512
-// kStep bytes a step.
-template <int kN, int kD>
+// (d, tcol(r)) and lo to (d, kN + tcol(r)) of dst, kD rows. With kParts the
+// tile was split in place (split_natural): src holds hi and src_lo lo, at
+// the same offsets, and the two are written as they stand; without it each
+// x of src is split here. Thread `tid` takes row r = tid % kN and the
+// float4s (r, 4 c4) for c4 = tid / kN + kStep it: a quarter warp reads
+// eight rows (eight distinct chunks after the swizzle) and a warp writes
+// whole rows of dst (32 consecutive columns, or two half rows four rows
+// apart at kN 16), free of bank conflicts. kStep (128 / kN) is even, so
+// c4 % 2, and with it the swizzle of the rows d = 4 c4 + i a thread
+// writes, stays the same from one step to the next: the stores are the
+// first step's addresses plus 512 kStep bytes a step.
+template <int kN, int kD, bool kParts = false>
 __device__ __forceinline__ void transpose_split(const unsigned char* src, unsigned char* dst,
-                                                int tid) {
+                                                int tid, const unsigned char* src_lo = nullptr) {
   constexpr int kStep = 128 / kN;
   static_assert(kStep % 2 == 0 && (kN * kD / 4) % 128 == 0, "whole float4s a thread");
   const int r = tid % kN, c40 = tid / kN;
@@ -132,13 +140,26 @@ __device__ __forceinline__ void transpose_split(const unsigned char* src, unsign
   }
 #pragma unroll
   for (int it = 0; it < kN * kD / 512; ++it) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(src + panel_offset(kN, r, 4 * (c40 + kStep * it)));
+    const uint32_t from = panel_offset(kN, r, 4 * (c40 + kStep * it));
+    const float4 v = *reinterpret_cast<const float4*>(src + from);
     const float x[4] = {v.x, v.y, v.z, v.w};
+    float y[4];
+    if constexpr (kParts) {
+      const float4 w = *reinterpret_cast<const float4*>(src_lo + from);
+      y[0] = w.x;
+      y[1] = w.y;
+      y[2] = w.z;
+      y[3] = w.w;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       uint32_t hi, lo;
-      split(x[i], hi, lo);
+      if constexpr (kParts) {
+        hi = __float_as_uint(x[i]);
+        lo = __float_as_uint(y[i]);
+      } else {
+        split(x[i], hi, lo);
+      }
       *reinterpret_cast<uint32_t*>(dst + to_hi[i] + 512 * kStep * it) = hi;
       *reinterpret_cast<uint32_t*>(dst + to_lo[i] + 512 * kStep * it) = lo;
     }

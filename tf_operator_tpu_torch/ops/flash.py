@@ -20,12 +20,13 @@ A CUDA tensor goes through the kernels (bf16 or fp32, a head_dim that is a
 multiple of 8 from 8 to 256, fixed tiles). bf16 runs on tensor cores:
 ``ops/csrc/flash_fwd.cu`` (forward), ``ops/csrc/flash_dq.cu`` (dQ) and
 ``ops/csrc/flash_dkv.cu`` (dK/dV); fp32 at fp32's accuracy, as the Pallas
-kernels keep fp32 inputs' products in fp32: ``ops/csrc/flash_fwd_f32.cu``
-and ``flash_dkv_f32.cu`` (at 64 and 128 columns) as three TF32 passes a
-product on the tensor cores (3xTF32, ``ops/csrc/tf32x3.cuh``;
-:func:`tf32_probe` checks on the card what they assume of it),
-``flash_dq_f32.cu`` and ``flash_dkv_f32.cu`` at 256 as FMAs on the CUDA
-cores. Each is built as three instances, for tiles 64, 128 and 256 columns
+kernels keep fp32 inputs' products in fp32: ``ops/csrc/flash_fwd_f32.cu``,
+and ``flash_dq_f32.cu`` and ``flash_dkv_f32.cu`` at 64 and 128 columns, as
+three TF32 passes a product on the tensor cores (3xTF32, each operand split
+into a hi rounded to TF32 and lo = x - hi; ``ops/csrc/tf32x3.cuh``;
+:func:`tf32_probe` checks on the card what they assume of it), dQ and
+dK/dV at 256 as FMAs on the CUDA cores. Each is built as three instances,
+for tiles 64, 128 and 256 columns
 wide; a head_dim goes to the narrowest that holds it, whose columns past it
 are zeros (TMA's fill) or never read (the FMA kernels), and the instances'
 launches count apart (``kernel_name``: ``flash_fwd_d64`` up to 64,
@@ -343,7 +344,8 @@ def tf32_probe(device="cuda") -> dict:
     """How the card's tensor core reads an fp32 operand of a ``.tf32``
     wgmma, from one product each (``ops/csrc/tf32_probe.cu``): whether it
     truncates the value to TF32 (``truncates``: what the fp32 kernels
-    assume, a raw fp32 tile then being its own hi; ``ops/csrc/tf32x3.cuh``),
+    assume of each lo they hand it, their hi being TF32 values already;
+    ``ops/csrc/tf32x3.cuh``),
     rounds it to nearest (``rounds``) or reads it whole (``exact``), and
     whether the register A fragment has the layout the kernels assume
     (``fragment_layout``). ``values`` maps each crafted probe value to what

@@ -12,16 +12,21 @@ through chip_smoke.train_run (bs 8, seq 2048, "dots", 1 warm-up step and
 3 timed: step time, tokens/s, MFU, peak memory, launches a step). The
 order is parent, change, change, parent, so that a drift of the card's
 clocks falls on both sides; each side's figures are the mean of its two
-runs. With ``--ablate``, three copies of CHANGE_DIR's tree are made under
-its ``_archive/`` (ignored by git) with one part of the fp32 forward and
-dK/dV kernels taken out, and timed after the four runs, without the step:
-"no_split" (the forward's producer writes neither K lo nor V^T: what its
-splitting passes cost), "one_pass" (one hi x hi product a k8 step instead
-of three, in both kernels: what the 3xTF32 passes cost) and "no_softmax"
-(the forward's consumer skips the online softmax). Their results are
-wrong; only their times mean anything. Prints each run as one JSON line
-and, last, a JSON object of the sides' means; ``--out`` writes it too.
-Needs one CUDA card.
+runs. With ``--ablate``, a copy of CHANGE_DIR's tree is made under its
+``_archive/`` (ignored by git) for each entry of ABLATIONS, with one part
+of the 3xTF32 kernels changed, and timed after the four runs, without the
+step: "no_split" (the forward's producer neither splits K nor writes V^T:
+what its splitting passes cost), "one_pass" (one hi x hi product a k8 step
+instead of three, in every 3xTF32 kernel: what the passes cost) and
+"no_softmax" (the forward's consumer skips the online softmax), whose
+results are wrong and only their times mean anything; "truncated_hi"
+(every natural tile's split leaves x in place as its own, truncated, hi
+and writes lo = x - trunc(x) beside it, as before hi was rounded in
+place: what the rounding costs) and "dq_narrow_tiles" (dQ on tiles of
+32 keys at width 64 and 16 at 128, with two A and two T slots: the other
+tiling its header weighs), whose results are right. Prints
+each run as one JSON line and, last, a JSON object of the sides' means;
+``--out`` writes it too. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ out["card"] = cs.smi_line()
 print(json.dumps(out))
 '''
 
-# Ablations of the fp32 forward and dK/dV kernels: (file, text, replacement).
+# Ablations of the 3xTF32 kernels: (file, text, replacement).
 ABLATIONS = {
     "no_split": [
         ("flash_fwd_f32.cu", "      split_natural<L::kTile>(a, a + L::kTile, tid);\n", ""),
@@ -92,6 +97,23 @@ ABLATIONS = {
          "    softmax_step(sc, m0, m1, l0, l1, alpha0, alpha1, masked, k0, row0, cq, Sk, causal, "
          "c);\n",
          "    alpha0 = alpha1 = l0 = l1 = 1.0f;\n    m0 = m1 = 0.0f;\n    (void)masked;\n"),
+    ],
+    "truncated_hi": [
+        ("tf32x3.cuh",
+         "    const float4 h = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z), "
+         "tf32_hi(v.w));\n    xs[i] = h;\n",
+         "    const float4 h = make_float4(\n"
+         "        __uint_as_float(__float_as_uint(v.x) & 0xFFFFE000u),\n"
+         "        __uint_as_float(__float_as_uint(v.y) & 0xFFFFE000u),\n"
+         "        __uint_as_float(__float_as_uint(v.z) & 0xFFFFE000u),\n"
+         "        __uint_as_float(__float_as_uint(v.w) & 0xFFFFE000u));\n"),
+    ],
+    "dq_narrow_tiles": [
+        ("flash_dq_f32.cu",
+         "  static constexpr int kN = kD == 64 ? 64 : 32;  // keys of a K/V tile\n"
+         "  static constexpr int kSlotsA = kD == 64 ? 2 : 1;\n  static constexpr int kSlotsT = 1;\n",
+         "  static constexpr int kN = kD == 64 ? 32 : 16;  // keys of a K/V tile\n"
+         "  static constexpr int kSlotsA = 2;\n  static constexpr int kSlotsT = 2;\n"),
     ],
 }
 
